@@ -6,8 +6,8 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit.  In one run it
 
-1. builds the three CUDA kernels from `stheno_tpu_torch/cuda/csrc/` (one
-   nvcc per source, in parallel) and prints the card's name and power limit;
+1. builds the CUDA kernels from `stheno_tpu_torch/cuda/csrc/` (one nvcc
+   per source, in parallel) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
    flagship's shapes and at a ragged one (kernel 1 also in f64), with the
    tolerance stated;
@@ -18,7 +18,16 @@ the CUDA toolkit.  In one run it
    `torch.linalg.cholesky` and autograd);
 4. runs `predict` (posterior marginals of f1 at M = 1024 points given f3)
    and checks it against f64 the same way;
-5. times the step, its stages, `predict` and each kernel beside its plain
+5. runs the performance probe's path at N = 16384 (`perf_probe`: kernel 4
+   against its plain version, forcing scalars of three forwards against
+   tr(K), 64 chained base blocks on kernel 2 against the library, the
+   rec, iter and fused gradients at backward panels of 2048 against each
+   other and I, and the fused one at 4096 against its own limit), counting
+   its launches;
+6. runs the state-space tier at N = 10^6 (`markov`): logpdf and gradient in
+   f32 against f64 on the card, logpdf at N = 16384 against the dense f64
+   logpdf, and finite posterior marginals;
+7. times the step, its stages, `predict` and each kernel beside its plain
    version, its bound and its nearest single PyTorch call, and breaks one
    step and one `predict` down by device kernel with torch.profiler.
 
@@ -37,6 +46,13 @@ from pathlib import Path
 
 N = 16384
 M = 1024
+NM = 1_000_000  # the state-space tier's N
+#: the kernels of the flagship step and of `predict`
+FLAGSHIP_KERNELS = ("kernelmatrix", "chol_block", "tri_inv_block")
+#: the kernels of the probe's path, and the rows of it run here
+PROBE_KERNELS = ("km_se_d1", "chol_block", "tri_inv_block")
+PROBE_ROWS = ("null", "chol_cur", "chol_grad", "chol_grad_fused4096", "chol_btri", "chol_pal_all",
+              "base_chain", "km_xla", "km_pal")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 rate outside
 # the tensor cores; one SM's fp32 rate is 1/132 of the card's.
 HBM_BYTES_PER_S = 3.35e12
@@ -152,6 +168,13 @@ def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def numerics_policy(torch):
+    """The port's GEMMs run in full fp32: TF32 stays off."""
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
+    require(torch.get_float32_matmul_precision() == "highest",
+            "float32 matmul precision is not 'highest'")
+
+
 def spd_blocks(torch, batch, n, dtype, device, seed):
     """A batch of well-scaled SPD blocks made from a seed."""
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -171,14 +194,15 @@ def main():
     from stheno_tpu_torch import cuda as kern
     from stheno_tpu_torch.cuda.chol_block import (
         chol_block, chol_block_plain, tri_inv_block, tri_inv_block_plain)
-    from stheno_tpu_torch.cuda.kernelmatrix import kernelmatrix_forward, kernelmatrix_plain
+    from stheno_tpu_torch import perf_probe as pp
+    from stheno_tpu_torch.cuda.kernelmatrix import (
+        kernelmatrix_forward, kernelmatrix_plain, km_se_d1, km_se_d1_plain)
     from stheno_tpu_torch.entry import build, flagship, flagship_data, nlml, predict
+    from stheno_tpu_torch.markov import markov_gp_logpdf, markov_gp_posterior_marginals
     from stheno_tpu_torch.ops import chol as C
 
     # ---- 1. set-up: numerics policy, build, card ---------------------------
-    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
-    require(torch.get_float32_matmul_precision() == "highest",
-            "float32 matmul precision is not 'highest'")
+    numerics_policy(torch)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     kern.build_all()
@@ -285,8 +309,8 @@ def main():
     step_counts = {k: c.total for k, c in kern.COUNTERS.items()}
     step_shapes = {k: {str(s): v for s, v in c.by_shape.items()} for k, c in kern.COUNTERS.items()}
     emit({"step_launches": step_counts, "step_launches_by_shape": step_shapes})
-    for name, count in step_counts.items():
-        require(count > 0, f"kernel {name} was not launched by the flagship step")
+    for name in FLAGSHIP_KERNELS:
+        require(step_counts[name] > 0, f"kernel {name} was not launched by the flagship step")
     require(math.isfinite(val.item()) and all(math.isfinite(g.item()) for g in grad.values()),
             "flagship step is not finite")
 
@@ -332,8 +356,8 @@ def main():
     pred_counts = {k: c.total for k, c in kern.COUNTERS.items()}
     pred_shapes = {k: {str(s): v for s, v in c.by_shape.items()} for k, c in kern.COUNTERS.items()}
     emit({"predict_launches": pred_counts, "predict_launches_by_shape": pred_shapes})
-    for name, count in pred_counts.items():
-        require(count > 0, f"kernel {name} was not launched by predict")
+    for name in FLAGSHIP_KERNELS:
+        require(pred_counts[name] > 0, f"kernel {name} was not launched by predict")
     with torch.no_grad():
         t64 = {k: v.to(f64) for k, v in theta_d.items()}
         K64 = ref_cov(t64)
@@ -360,7 +384,142 @@ def main():
     require(var_err <= VAR_TOL, f"predict var err {var_err} > {VAR_TOL}")
     torch.cuda.empty_cache()
 
-    # ---- 5. timings --------------------------------------------------------
+    # ---- 5. the performance probe's path at N=16384 ------------------------
+    kern.reset_counters()
+    probe = pp.Probe(n=N, reps=2, device=dev)
+    probe.run(PROBE_ROWS)
+    torch.cuda.synchronize()
+    probe_counts = {k: c.total for k, c in kern.COUNTERS.items()}
+    emit({"probe_launches": probe_counts,
+          "probe_launches_by_shape": {k: {str(s): v for s, v in c.by_shape.items()}
+                                      for k, c in kern.COUNTERS.items()}})
+    for name in PROBE_KERNELS:
+        require(probe_counts[name] > 0, f"kernel {name} was not launched by the probe")
+    require(not probe.failures, f"probe checks failed: {probe.failures}")
+    res = probe.results
+    # kernel 4 (km_pal) against its plain version (km_xla), same inputs
+    K4 = km_se_d1(probe.x)
+    K4p = km_se_d1_plain(probe.x)
+    km4_err = (K4 - K4p).abs().max().item()
+    require(km4_err <= KM_TOL and bool((K4.diagonal() == 1.5).all()),
+            f"km_se_d1: max abs err {km4_err} > {KM_TOL} or diagonal not exact")
+    del K4, K4p
+    # 64 chained 256-blocks: kernel 2 against torch.linalg.cholesky
+    CHAIN_TOL = 1e-5  # relative: Σ of 64 forcing scalars, each tr(A) to f32 rounding
+    chain_rel = abs(res["base_chain_pal"]["scalar"] - res["base_chain_lax"]["scalar"]) / abs(
+        res["base_chain_lax"]["scalar"])
+    require(chain_rel <= CHAIN_TOL, f"base_chain: pal vs lax rel err {chain_rel} > {CHAIN_TOL}")
+    # the reverse rule's three modes on chol_grad's K, at backward panels of
+    # 2048: each against I and against the others (the gradient of ΣL² in K
+    # is I).  The fused sweep at 4096 is the probe's own row, with its limit.
+    K = probe.km(0)
+    modes = {m: {"mode": m, "block": 2048} for m in ("rec", "iter", "fused")}
+    grads = {m: pp.grad_of_sum_sq(K, 2048, 256, bwd)[1] for m, bwd in modes.items()}
+    del K
+    vs_identity = {m: pp.identity_distance(g) for m, g in grads.items()}
+    between = {f"{a}-{b}": (grads[a] - grads[b]).abs().max().item()
+               for a, b in (("rec", "iter"), ("iter", "fused"), ("rec", "fused"))}
+    del grads
+    emit({"probe_check": {
+        "km_se_d1_max_abs_err": km4_err, "km_tolerance_abs": KM_TOL,
+        "forcing_rel_err_vs_trK": {k: res[k]["rel_err"] for k in ("chol_cur", "chol_pal_all", "chol_btri")},
+        "forcing_tolerance_rel": pp.CHOL_RTOL,
+        "base_chain_pal_vs_lax_rel": chain_rel, "base_chain_tolerance_rel": CHAIN_TOL,
+        "grad_max_abs_err_vs_I": vs_identity, "grad_max_abs_diff_between_modes": between,
+        "grad_backward_block": 2048, "grad_tolerance_abs": pp.GRAD_ATOL,
+        "fused4096_max_abs_err_vs_I": res["chol_grad_fused4096"]["grad_max_abs_err_vs_I"],
+        "fused4096_tolerance_abs": res["chol_grad_fused4096"]["grad_atol"]}})
+    for k, e in {**vs_identity, **between}.items():
+        require(e <= pp.GRAD_ATOL, f"chol_grad {k}: max abs err {e} > {pp.GRAD_ATOL}")
+    torch.cuda.empty_cache()
+
+    # ---- 6. the state-space tier at N=10^6 ----------------------------------
+    kern.reset_counters()
+    mprobe = pp.Probe(n=8, reps=2, device=dev, markov_n=NM)
+    torch.cuda.reset_peak_memory_stats()
+    mprobe.run(("markov_1m",))
+    torch.cuda.synchronize()
+    peak_markov_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the tier is plain PyTorch: no kernel of the four is on its path
+    emit({"markov_launches": {k: c.total for k, c in kern.COUNTERS.items()}})
+    require(not mprobe.failures, f"markov probe checks failed: {mprobe.failures}")
+    xm, ym = pp.markov_inputs(NM, f32, dev)
+
+    def markov_value_and_grad(dtype, x_, y_):
+        lv = torch.tensor([1.2, 5.0], dtype=dtype, device=dev, requires_grad=True)
+        v = markov_gp_logpdf(pp.markov_kernel(lv), x_.to(dtype), y_.to(dtype), 0.1, dtype=dtype)
+        (g,) = torch.autograd.grad(v, lv)
+        return v.item(), g.tolist()
+
+    # the same (f32-rounded) inputs in both precisions
+    v32, g32 = markov_value_and_grad(f32, xm, ym)
+    v64, g64 = markov_value_and_grad(f64, xm, ym)
+    MARKOV_TOL = 5e-3  # relative, as tests/test_markov.py:154 allows f32
+    m_val_rel = abs(v32 - v64) / abs(v64)
+    m_grad_rel = max(abs(a - b) / abs(b) for a, b in zip(g32, g64))
+    # N = 16384 against the dense f64 logpdf of the same Matern32 GP
+    nd = N
+    xd, yd = pp.markov_inputs(nd, f64, dev)
+    with torch.no_grad():
+        Kd = kernelmatrix_plain((xd / 5.0)[:, None], None, "matern32", torch.tensor(1.2, dtype=f64, device=dev))
+        Kd.diagonal().add_(0.1)
+        Ld = torch.linalg.cholesky(Kd)
+        del Kd
+        ad = torch.linalg.solve_triangular(Ld, yd[:, None], upper=False)[:, 0]
+        dense = (-0.5 * (ad @ ad) - torch.log(torch.diagonal(Ld)).sum() - 0.5 * nd * math.log(2 * math.pi)).item()
+        del Ld
+        lv64 = torch.tensor([1.2, 5.0], dtype=f64, device=dev)
+        d64 = markov_gp_logpdf(pp.markov_kernel(lv64), xd, yd, 0.1, dtype=f64).item()
+        d32 = markov_gp_logpdf(pp.markov_kernel(lv64.float()), xd.float(), yd.float(), 0.1,
+                               dtype=f32).item()
+        DENSE_TOL64 = 1e-8  # relative: f64 scan against f64 Cholesky
+        dense_rel64 = abs(d64 - dense) / abs(dense)
+        dense_rel32 = abs(d32 - dense) / abs(dense)
+        # posterior marginals of the N = 10^6 fit at 4096 sites, f32
+        xs_m = torch.linspace(0.0, 4000.0, 4096, dtype=f32, device=dev)
+        lv32 = torch.tensor([1.2, 5.0], dtype=f32, device=dev)
+        post = lambda: markov_gp_posterior_marginals(pp.markov_kernel(lv32), xm, ym, 0.1,
+                                                     x_star=xs_m, dtype=f32)
+        mean_m, var_m = post()
+        post_ms = host_ms(post, reps=2)
+    markov_fwd_ms = mprobe.results[f"markov_fwd_{NM}"]["median_ms"]
+    markov_grad_ms = mprobe.results[f"markov_grad_{NM}"]["median_ms"]
+    # the least the filter can move: x and y read once, the per-step
+    # elements (A, b, C, η, J: 16 floats for 2 states) written once and read
+    # once by the scan, and the filtered moments (b, C: 6 floats) written once
+    markov_bytes = NM * (2 + 2 * 16 + 6) * 4
+    markov_bound, markov_by = bound(markov_bytes, 0)
+    emit({"markov_check": {
+        "n": NM, "logpdf_f32": v32, "logpdf_f64": v64, "logpdf_rel_err": m_val_rel,
+        "grad_f32": g32, "grad_f64": g64, "grad_max_rel_err": m_grad_rel, "tolerance_rel": MARKOV_TOL,
+        "dense_n": nd, "dense_f64_logpdf": dense, "markov_f64_logpdf": d64, "markov_f32_logpdf": d32,
+        "dense_rel_err_f64": dense_rel64, "dense_tolerance_f64": DENSE_TOL64,
+        "dense_rel_err_f32": dense_rel32, "dense_tolerance_f32": MARKOV_TOL,
+        "posterior_sites": xs_m.shape[0], "var_range": [var_m.min().item(), var_m.max().item()]}})
+    require(m_val_rel <= MARKOV_TOL and m_grad_rel <= MARKOV_TOL,
+            f"markov f32 vs f64 at N={NM}: value {m_val_rel}, gradient {m_grad_rel} > {MARKOV_TOL}")
+    require(dense_rel64 <= DENSE_TOL64, f"markov f64 vs dense: {dense_rel64} > {DENSE_TOL64}")
+    require(dense_rel32 <= MARKOV_TOL, f"markov f32 vs dense: {dense_rel32} > {MARKOV_TOL}")
+    require(bool(torch.isfinite(mean_m).all() and torch.isfinite(var_m).all() and (var_m > 0).all()),
+            "markov posterior marginals are not finite and positive")
+    emit({"markov": {"n": NM, "dtype": "float32", "fwd_ms": markov_fwd_ms, "grad_ms": markov_grad_ms,
+                     "posterior_4096_ms": post_ms, "fwd_bound_ms": markov_bound,
+                     "fwd_bound_by": markov_by, "fwd_bound_bytes": markov_bytes,
+                     "peak_gib": peak_markov_gib, "card": card}})
+    lv_p = torch.tensor([1.2, 5.0], dtype=f32, device=dev)
+
+    def markov_grad_once():
+        lv = lv_p.clone().requires_grad_(True)
+        torch.autograd.grad(markov_gp_logpdf(pp.markov_kernel(lv), xm, ym, 0.1, dtype=f32), lv)
+
+    with torch.no_grad():
+        emit({"profile_markov_fwd": profile_ms(
+            lambda: markov_gp_logpdf(pp.markov_kernel(lv_p), xm, ym, 0.1, dtype=f32))})
+    emit({"profile_markov_grad": profile_ms(markov_grad_once)})
+    del xm, ym, xd, yd, mean_m, var_m
+    torch.cuda.empty_cache()
+
+    # ---- 7. timings --------------------------------------------------------
     step_ms = host_ms(lambda: step(theta), reps=5)
     predict_ms = host_ms(lambda: predict(theta_d, x, y, xp), reps=5)
 
@@ -417,6 +576,12 @@ def main():
         }
     per_cta_ms = (256**3 / 3) / (FP32_FLOP_PER_S / SMS) * 1e3
 
+    # kernel 4 at the probe's shape: x (N,) → K (N, N), the same 1 GiB write
+    x4 = probe.x
+    km4_ms = event_ms(lambda: km_se_d1(x4), reps=20)
+    km4_plain_ms = event_ms(lambda: km_se_d1_plain(x4), reps=5)
+    km4_bound, km4_by = bound((N + N * N) * 4, N * N * 10)
+
     kernels = [
         {"name": "kernelmatrix", "route": "cuda",
          "source": "stheno_tpu_torch/cuda/csrc/kernelmatrix.cu",
@@ -442,6 +607,13 @@ def main():
          "batch1": {"ms": tri[1]["ms"], "plain_ms": tri[1]["plain_ms"],
                     "library_ms": tri[1]["library_ms"], "bound_ms": tri[1]["bound"][0]},
          "launches_by_shape": step_shapes["tri_inv_block"]},
+        {"name": "km_se_d1", "route": "cuda",
+         "source": "stheno_tpu_torch/cuda/csrc/kernelmatrix.cu",
+         "replaces": "scripts/perf_probe.py:128",
+         "launches": probe_counts["km_se_d1"], "max_abs_err": km4_err,
+         "ms": km4_ms, "plain_ms": km4_plain_ms, "bound_ms": km4_bound, "bound_by": km4_by,
+         "library_ms": None, "shape": f"x ({N},) -> K {N}x{N} SE variance 1.5 f32",
+         "path": "perf_probe (kernel 1's SE, D=1 instance)"},
     ]
     # the step's flops: the blocked forward n³/3 and its reverse sweep 2n³/3
     # (the m×m @ m×B trailing GEMM of each panel); predict: the forward and
@@ -454,6 +626,7 @@ def main():
                        "peak_step_gib": peak_step_gib, "card": card}})
     emit({"profile_step": profile_ms(lambda: step(theta))})
     emit({"profile_predict": profile_ms(lambda: predict(theta_d, x, y, xp))})
+    numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

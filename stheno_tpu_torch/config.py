@@ -3,14 +3,18 @@
 
 - Default observation noise (jitter) depends on the dtype.
 - Thread-local scoped overrides of the blocked linear algebra: the Cholesky
-  backend (`chol_backend`) and the backward's panel block and recursion
-  base (`bwd_params`).  A scope cannot leak, even on an exception:
+  backend (`chol_backend`), the reverse rule's knobs (`bwd_params`), and the
+  raw keys `base_cholesky` and `base_tri_inv`, which swap the factoriser and
+  the triangular inverse of the blocked Cholesky's base blocks
+  (`scoped(base_cholesky=fn)`).  A scope cannot leak, even on an exception:
 
       with stheno_tpu_torch.config.chol_backend("blocked"):
           L = cholesky_psd(K)
 
-The reference's GEMM-precision knobs have no counterpart: every GEMM of the
-port runs in full fp32 (see `ops/blocked_cholesky.py`).
+The reference's GEMM-precision knobs (`gemm_precision`, `bwd_precision`) have
+no counterpart: every GEMM of the port runs in full fp32 (see
+`ops/blocked_cholesky.py`).  On the card a lower precision would mean TF32,
+not the TPU's three-pass bf16.
 """
 
 from __future__ import annotations
@@ -60,12 +64,26 @@ def scoped(**overrides):
         _override_stack().pop()
 
 
-def bwd_params(base=None, block=None):
-    """Scope the blocked-Cholesky backward's recursion base and panel block
-    (only the ones given): `with bwd_params(block=512): ...`."""
+#: Reverse-rule algorithms of the blocked Cholesky: "iter" (panel sweep),
+#: "rec" (recursive two-way split), "fused" (panel sweep with its solves
+#: folded into GEMMs against the panel inverses).
+BWD_MODES = ("iter", "rec", "fused")
+
+
+def bwd_params(base=None, via_inv=None, mode=None, block=None):
+    """Scope the blocked-Cholesky reverse rule's knobs (only the ones given):
+    recursion base, whether its solves apply diagonal blocks through their
+    explicit inverses (`via_inv`), the algorithm (`mode`, one of
+    `BWD_MODES`) and the panel block: `with bwd_params(mode="fused"): ...`."""
+    if mode is not None and mode not in BWD_MODES:
+        raise ValueError(f"unknown backward mode {mode!r}; expected one of {BWD_MODES}")
     frame = {}
     if base is not None:
         frame["bwd_base"] = base
+    if via_inv is not None:
+        frame["bwd_via_inv"] = via_inv
+    if mode is not None:
+        frame["bwd_mode"] = mode
     if block is not None:
         frame["bwd_block"] = block
     return scoped(**frame)

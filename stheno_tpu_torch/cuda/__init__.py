@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels for Hopper (`sm_90a`), one per Pallas kernel of
-the JAX package, each with its plain PyTorch version beside it:
+"""Hand-written CUDA kernels for Hopper (`sm_90a`), one for each Pallas
+kernel of the JAX package, each with its plain PyTorch version beside it:
 
 - `kernelmatrix`: the pairwise stationary kernel matrix (kernel 1);
 - `chol_block.chol_block`: base-case Cholesky of a batch of blocks (kernel 2);
-- `chol_block.tri_inv_block`: base-case triangular inverse (kernel 3).
+- `chol_block.tri_inv_block`: base-case triangular inverse (kernel 3);
+- `kernelmatrix.km_se_d1`: the performance probe's same-input SE matrix of a
+  vector (kernel 4), launched on kernel 1's SE, D = 1 instance.
 
 Sources are in `csrc/`, built by `_build` at first use.  Nothing here
 compiles or loads a kernel at import.
@@ -17,6 +19,7 @@ COUNTERS = {
     "kernelmatrix": kernelmatrix.LAUNCHES,
     "chol_block": chol_block.CHOL_LAUNCHES,
     "tri_inv_block": chol_block.TRI_INV_LAUNCHES,
+    "km_se_d1": kernelmatrix.KM_SE_D1_LAUNCHES,
 }
 
 

@@ -32,6 +32,22 @@ TRI_INV_LAUNCHES = _build.LaunchCounter("tri_inv_block")
 SMEM_LIMIT = 232448
 
 
+def _tri_inv_staging(n):
+    """Floats kernel 3 stages beside its triangle: 4 rows × 32 entries of L
+    per warp, ≤ 8 warps."""
+    return 4 * min(256, -(-n // 32) * 32)
+
+
+def _fits(n, extra):
+    return (n * (n + 1) // 2 + extra) * 4 <= SMEM_LIMIT
+
+
+def fits(n):
+    """Whether kernels 2 and 3 both take n×n blocks: the packed triangle
+    and their working floats fit in shared memory."""
+    return _fits(n, n) and _fits(n, _tri_inv_staging(n))
+
+
 def chol_block_plain(A):
     """Right-looking column sweep over tril(A), batched over leading dims:
     L[k:, k] = A[k:, k]·rsqrt(A[k, k]), then A[i, j] −= L[i, k]·L[j, k].
@@ -68,7 +84,7 @@ def _launch(name: str, counter, A, extra: int):
     if A.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got {A.dtype}")
     batch, n, _ = A.shape
-    if (n * (n + 1) // 2 + extra) * 4 > SMEM_LIMIT:
+    if not _fits(n, extra):
         raise ValueError(f"{name}: the packed triangle of a {n}×{n} block does not fit "
                          f"in {SMEM_LIMIT} bytes of shared memory")
     out = torch.empty_like(A)
@@ -100,6 +116,4 @@ def tri_inv_block(L):
         return tri_inv_block_plain(L)
     if L.dim() == 2:
         return tri_inv_block(L[None])[0]
-    # the kernel also stages 4 rows × 32 entries of L per warp, ≤ 8 warps
-    staging = 4 * min(256, -(-L.shape[-1] // 32) * 32)
-    return _launch("tri_inv_block", TRI_INV_LAUNCHES, L.contiguous(), extra=staging)
+    return _launch("tri_inv_block", TRI_INV_LAUNCHES, L.contiguous(), extra=_tri_inv_staging(L.shape[-1]))

@@ -14,6 +14,14 @@ PyTorch in row chunks (the Pallas kernel has no backward), so at N = 16384
 it never holds more than a few N×chunk temporaries besides K̄ itself.  The
 caller folds the lengthscale into `x` and `y` (`x / ℓ`), so ∂ℓ flows
 through autograd, as at `kernelmatrix.py:95-97` of the reference.
+
+`km_se_d1(x, variance)` replaces the fourth Pallas kernel of the JAX
+package, `make_km_pallas` in `scripts/perf_probe.py:116-154`: the same-input
+SE matrix of a vector, σ²·exp(−½(x_i − x_j)²).  That is this kernel's
+`<float, SE, D1=true>` instance, so the wrapper launches it and counts its
+own launches; its plain version is the broadcast formula.  The TPU kernel's
+tilings ((256, 2048) and (512, 1024), sized for VMEM) have no meaning on
+the card.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ KINDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 #: Launches of the CUDA kernel, by (n, m, d, same).
 LAUNCHES = _build.LaunchCounter("kernelmatrix")
+#: Launches made through `km_se_d1`, by (n, n, 1, True).
+KM_SE_D1_LAUNCHES = _build.LaunchCounter("km_se_d1")
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -96,7 +106,7 @@ def kernelmatrix_plain(x, y, kind: str, variance):
     return variance * epilogue(kind, sq)
 
 
-def _launch(x, y, kind: str, variance):
+def _launch(x, y, kind: str, variance, counter=LAUNCHES):
     same = y is None
     yy = x if same else y
     for name, t in (("x", x), ("y", yy)):
@@ -121,7 +131,7 @@ def _launch(x, y, kind: str, variance):
         code = fn(x.data_ptr(), yy.data_ptr(), var.data_ptr(), out.data_ptr(),
                   n, m, d, KINDS[kind], int(same), stream)
     _build.check(lib, code, "kernelmatrix launch")
-    LAUNCHES.add((n, m, d, same))
+    counter.add((n, m, d, same))
     return out
 
 
@@ -132,6 +142,26 @@ def kernelmatrix_forward(x, y, kind: str, variance):
     if x.is_cuda:
         return _launch(x, y, kind, variance)
     return kernelmatrix_plain(x, y, kind, variance)
+
+
+def km_se_d1_plain(x, variance=1.5):
+    """σ²·exp(−½(x_i − x_j)²) of a vector x by broadcasting (the probe's
+    `km_xla`, reference `scripts/perf_probe.py:46-48`)."""
+    d = x[:, None] - x[None, :]
+    return variance * torch.exp(-0.5 * d * d)
+
+
+def km_se_d1(x, variance=1.5):
+    """The same-input SE matrix σ²·exp(−½(x_i − x_j)²) of a vector x (N,):
+    kernel 1's `<float, SE, D1>` instance on a CUDA tensor, the plain
+    version on a CPU tensor.  Its diagonal is exactly σ² in both."""
+    if x.dim() != 1:
+        raise ValueError(f"km_se_d1: x must be a vector, got shape {tuple(x.shape)}")
+    if not x.is_cuda:
+        return km_se_d1_plain(x, variance)
+    if not torch.is_tensor(variance):  # a fill on the card, not a copy from the host
+        variance = torch.full((), variance, dtype=x.dtype, device=x.device)
+    return _launch(x[:, None].contiguous(), None, "se", variance, KM_SE_D1_LAUNCHES)
 
 
 def _chunk_rows(m: int) -> int:

@@ -6,16 +6,30 @@ The factorisation runs almost all of its flops in large GEMMs:
 - panels of `block` columns (default 1024); each step's update
   `A[c:, c:c+B] −= L[c:, :c] @ L[c:c+B, :c]ᵀ` is one `torch.matmul`;
 - the diagonal B×B block recurses on the same routine down to `base`
-  (default 256), where kernel 2 (`cuda.chol_block.chol_block`) factors it;
+  (default 256), where the base-case factoriser (kernel 2,
+  `cuda.chol_block.chol_block`, unless scoped otherwise) factors it;
 - the panel TRSM `L21 = A21 L11⁻ᵀ` is a GEMM against the explicit blocked
-  triangular inverse, whose diagonal base blocks kernel 3
-  (`cuda.chol_block.tri_inv_block`) inverts in one batched launch.
+  triangular inverse, whose diagonal base blocks the base-case inverse
+  (kernel 3, `cuda.chol_block.tri_inv_block`) inverts in one batched launch.
 
-`_BlockedCholesky` is a `torch.autograd.Function` whose backward is the
-iterative panel sweep of the reference (`_chol_bwd_iter`), reusing the
-forward's saved panel inverses; the blocked solves carry their closed-form
-adjoints (`_SolveLower`, `_SolveUpperT`).  Ragged N is identity-padded to
-the next panel multiple outside the Functions.
+`_BlockedCholesky` is a `torch.autograd.Function`.  Its backward dispatches
+on the scoped `config.bwd_params` in force at the forward call: the
+iterative panel sweep (`_chol_bwd_iter`, the default), the recursive
+two-way split (`_chol_bwd_rec`) or the fused sweep (`_chol_bwd_fused`),
+reusing the forward's saved panel inverses where the backward can.
+`via_inv` picks how the backward's solves apply diagonal blocks: GEMMs
+against explicit inverses (default) or `torch.linalg.solve_triangular`.  The
+blocked solves carry their closed-form adjoints (`_SolveLower`,
+`_SolveUpperT`).  Ragged N is identity-padded to the next panel multiple
+outside the Functions.  `sym=True` factors 0.5·(A + Aᵀ) with the fold done
+in each panel's read; `blocked_lauum` forms Mᵀ M of a lower-triangular M.
+
+Base cases: the raw scoped keys `base_cholesky` and `base_tri_inv`
+(`config.scoped(base_cholesky=fn)`) swap the factoriser and the inverse of
+the base blocks; `torch_chol_lower` and `torch_tri_inv_lower` are the
+library versions.  The port's defaults are kernels 2 and 3.  The
+reference's defaults are XLA's built-ins, with its Pallas kernels as the
+swap-in (reference `blocked_cholesky.py:81-130`).
 
 Numerics: every GEMM here must run in full fp32.  On the TPU, low-precision
 GEMMs inside the left-looking accumulation made the late diagonal blocks
@@ -28,9 +42,8 @@ must not enable TF32 around this module.
 The factor depends on tril(A) only: panels read lower column slabs and the
 base kernel ignores block-upper content (reference `blocked_cholesky.py:73-78`).
 The reference's other TRSMs (the backward base case, the solves' diagonal
-blocks) are `torch.linalg.solve_triangular`.  Left out for now: the `fused`
-backward mode, `blocked_lauum`, the `sym=True` fold and the deprecated
-`set_*` setters.
+blocks) are `torch.linalg.solve_triangular`.  Left out: the precision knobs
+(`gemm_precision`, `bwd_precision`) and the deprecated `set_*` setters.
 """
 
 from __future__ import annotations
@@ -41,24 +54,45 @@ from stheno_tpu_torch import config as _cfg
 from stheno_tpu_torch.cuda.chol_block import chol_block, tri_inv_block
 
 #: Backward defaults (reference `blocked_cholesky.py:359-365`): recursion
-#: base of the reverse rule and panel width of its iterative sweep.
+#: base of the reverse rule, whether its solves go through explicit
+#: inverses, its algorithm, and the panel width of its sweeps.
 _BWD_BASE = 256
+_BWD_VIA_INV = True
+_BWD_MODE = "iter"
 _BWD_BLOCK = 4096
 
 
 def _active_bwd_params():
-    """(base, block) of the backward, with scoped overrides applied."""
+    """(base, via_inv, mode, block) of the backward, with scoped overrides
+    applied."""
     return (
         _cfg.active_override("bwd_base", _BWD_BASE),
+        _cfg.active_override("bwd_via_inv", _BWD_VIA_INV),
+        _cfg.active_override("bwd_mode", _BWD_MODE),
         _cfg.active_override("bwd_block", _BWD_BLOCK),
     )
 
 
-def _torch_chol_lower(A):
+def torch_chol_lower(A):
     """`torch.linalg.cholesky` of the matrix whose lower triangle is
-    tril(A) (the ragged fallback; reads one triangle, as the blocked path)."""
-    Al = torch.tril(A)
-    return torch.linalg.cholesky(Al + torch.tril(A, -1).mT)
+    tril(A): the library base case, and the ragged fallback (it reads one
+    triangle, as the blocked path does)."""
+    return torch.linalg.cholesky(torch.tril(A) + torch.tril(A, -1).mT)
+
+
+def torch_tri_inv_lower(L):
+    """Inverse of lower-triangular L ((n, n) or (batch, n, n)) by
+    `torch.linalg.solve_triangular` against I: the library base case."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def _base_chol(A):
+    return _cfg.active_override("base_cholesky", chol_block)(A)
+
+
+def _base_tri_inv(L):
+    return _cfg.active_override("base_tri_inv", tri_inv_block)(L)
 
 
 def _diag_blocks(L, bs):
@@ -68,13 +102,13 @@ def _diag_blocks(L, bs):
 
 
 def _tri_inv_lower_batched(L, bs):
-    """Bottom-up batched L⁻¹ for n = 2^k·bs: ONE kernel-3 launch inverts
-    every diagonal base block, then log2(n/bs) rounds of batched GEMMs
-    assemble the pairwise combines
+    """Bottom-up batched L⁻¹ for n = 2^k·bs: ONE base-case call (one
+    kernel-3 launch by default) inverts every diagonal base block, then
+    log2(n/bs) rounds of batched GEMMs assemble the pairwise combines
 
         inv([[A, 0], [B, C]]) = [[A⁻¹, 0], [−C⁻¹ B A⁻¹, C⁻¹]]."""
     n = L.shape[-1]
-    invs = tri_inv_block(_diag_blocks(L, bs).contiguous())
+    invs = _base_tri_inv(_diag_blocks(L, bs).contiguous())
     s = bs
     while s < n:
         m = n // (2 * s)
@@ -92,17 +126,19 @@ def _tri_inv_lower_batched(L, bs):
 
 def blocked_tri_inv_lower(L, base):
     """Explicit inverse of a lower-triangular matrix.  Power-of-2 multiples
-    of `base` take the batched bottom-up construction (with kernel 3 as its
-    base); other sizes split in two recursively."""
+    of `base` take the batched bottom-up construction; other sizes split in
+    two recursively.  The base blocks go to the active base-case inverse
+    (the reference leaves the batched path when a custom one is scoped in;
+    here every base inverse takes a batch, so both keep it)."""
     n = L.shape[-1]
     if n <= base:
-        return tri_inv_block(L)
+        return _base_tri_inv(L)
     nb = n // base
     if n % base == 0 and nb & (nb - 1) == 0:
         return _tri_inv_lower_batched(L, base)
     h = ((n // 2) // 64) * 64
     if h == 0:
-        return tri_inv_block(L)
+        return _base_tri_inv(L)
     Ai = blocked_tri_inv_lower(L[:h, :h], base=base)
     Ci = blocked_tri_inv_lower(L[h:, h:], base=base)
     out = torch.zeros_like(L)
@@ -112,18 +148,20 @@ def blocked_tri_inv_lower(L, base):
     return out
 
 
-def _blocked_cholesky_impl(A, block=1024, base=256, collect_invs=False):
-    """Left-looking blocked factor of tril(A).  With `collect_invs` (top
-    level only) also returns the (nb, B, B) stack of the panels' diagonal-
-    block inverses, the last panel's included, for the backward to reuse."""
+def _blocked_cholesky_impl(A, block=1024, base=256, sym=False, collect_invs=False):
+    """Left-looking blocked factor of tril(A), or of 0.5·(A + Aᵀ) with
+    `sym` (each panel folds in its mirrored slab, so the symmetric matrix
+    is never formed).  With `collect_invs` (top level only) also returns
+    the (nb, B, B) stack of the panels' diagonal-block inverses, the last
+    panel's included, for the backward to reuse."""
     n = A.shape[-1]
     if n <= base:
-        L = chol_block(A)
+        L = _base_chol(0.5 * (A + A.mT) if sym else A)
         return (L, None) if collect_invs else L
     # panel width: ≤ n/2, so the recursion strictly shrinks; a multiple of 64
     B = (min(block, n // 2) // 64) * 64
     if B == 0 or n % B != 0:
-        L = _torch_chol_lower(A)
+        L = torch_chol_lower(0.5 * (A + A.mT) if sym else A)
         return (L, None) if collect_invs else L
 
     nb = n // B
@@ -132,6 +170,8 @@ def _blocked_cholesky_impl(A, block=1024, base=256, collect_invs=False):
     for kb in range(nb):
         c = kb * B
         A_panel = A[c:, c : c + B]
+        if sym:
+            A_panel = 0.5 * (A_panel + A[c : c + B, c:].T)
         if kb > 0:
             A_panel = A_panel - L[c:, :c] @ L[c : c + B, :c].T
         L11 = _blocked_cholesky_impl(A_panel[:B], block=max(base, B // 4), base=base)
@@ -191,7 +231,16 @@ def _solve_upper_T_reuse(L11, b, bs, invs, c_global):
     return x
 
 
-def _chol_bwd_rec(L, L_bar, base, invs=None, g0=0):
+def _right_solve(L11, Lb, bs, via_inv, invs, c):
+    """Lb L11⁻¹ (the raw cotangent of K21 from that of L21 = K21 L11⁻ᵀ) by
+    blocked substitution: against the forward's saved inverses where they
+    align and `via_inv` holds, else through `_solve_upper_T_impl`."""
+    if via_inv and _reuse_ok(invs, bs, c) and L11.shape[-1] % bs == 0:
+        return _solve_upper_T_reuse(L11, Lb.T, bs, invs, c).T
+    return _padded(_solve_upper_T_impl, L11, Lb.T, bs, via_inv).T
+
+
+def _chol_bwd_rec(L, L_bar, base, via_inv=True, invs=None, g0=0):
     """Recursive blocked reverse rule (raw lower convention), reversing
         L11 = chol(K11);  L21 = K21 L11⁻ᵀ;  L22 = chol(K22 − L21 L21ᵀ)."""
     n = L.shape[-1]
@@ -201,15 +250,11 @@ def _chol_bwd_rec(L, L_bar, base, invs=None, g0=0):
     L11, L21, L22 = L[:h, :h], L[h:, :h], L[h:, h:]
     Lb11, Lb21, Lb22 = L_bar[:h, :h], L_bar[h:, :h], L_bar[h:, h:]
 
-    S22 = _chol_bwd_rec(L22, Lb22, base, invs=invs, g0=g0 + h)
+    S22 = _chol_bwd_rec(L22, Lb22, base, via_inv, invs, g0 + h)
     Lb21_eff = Lb21 - (S22 + S22.T) @ L21
-    bs = max(base, h // 4)
-    if _reuse_ok(invs, bs, g0) and h % bs == 0:
-        K21_bar = _solve_upper_T_reuse(L11, Lb21_eff.T, bs, invs, g0).T
-    else:
-        K21_bar = _padded(_solve_upper_T_impl, L11, Lb21_eff.T, bs, True).T
+    K21_bar = _right_solve(L11, Lb21_eff, max(base, h // 4), via_inv, invs, g0)
     Lb11_eff = Lb11 - K21_bar.T @ L21
-    S11 = _chol_bwd_rec(L11, Lb11_eff, base, invs=invs, g0=g0)
+    S11 = _chol_bwd_rec(L11, Lb11_eff, base, via_inv, invs, g0)
 
     out = torch.zeros_like(L)
     out[:h, :h] = S11
@@ -218,7 +263,14 @@ def _chol_bwd_rec(L, L_bar, base, invs=None, g0=0):
     return out
 
 
-def _chol_bwd_iter(L, L_bar, block, base, invs=None):
+def _sweep_block(n, block):
+    """Panel width of a reverse sweep, or None when the sweep would have a
+    single or a ragged panel (the sweeps then defer to the recursive rule)."""
+    B = (min(block, n) // 64) * 64
+    return None if B == 0 or n % B != 0 or n <= B else B
+
+
+def _chol_bwd_iter(L, L_bar, block, base, via_inv=True, invs=None):
     """Iterative panel-sweep reverse rule; returns the SYMMETRIC gradient.
 
     Reverses the factorisation panel by panel, last to first, keeping the
@@ -229,9 +281,9 @@ def _chol_bwd_iter(L, L_bar, block, base, invs=None):
     back as a view.  Per panel the dominant op is one GEMM
     L̄21 −= 2·S22 @ L21 (m×m @ m×B)."""
     n = L.shape[-1]
-    B = (min(block, n) // 64) * 64
-    if B == 0 or n % B != 0 or n <= B:
-        K_raw = _chol_bwd_rec(L, L_bar, base, invs=invs, g0=0)
+    B = _sweep_block(n, block)
+    if B is None:
+        K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, invs, 0)
         return 0.5 * (K_raw + K_raw.T)
     S = torch.empty_like(L)
     for kb in reversed(range(n // B)):
@@ -244,46 +296,121 @@ def _chol_bwd_iter(L, L_bar, block, base, invs=None):
             # reverse of the Schur update K22 ← K22 − L21 L21ᵀ
             Lb21_eff = L_bar[e:, c:e] - 2.0 * (S[e:, e:] @ L21)
             # reverse of L21 = K21 L11⁻ᵀ: K̄21 = L̄21 L11⁻¹ (raw convention)
-            bs = max(base, B // 4)
-            if _reuse_ok(invs, bs, c) and B % bs == 0:
-                A21_bar = _solve_upper_T_reuse(L11, Lb21_eff.T, bs, invs, c).T
-            else:
-                A21_bar = _padded(_solve_upper_T_impl, L11, Lb21_eff.T, bs, True).T
+            A21_bar = _right_solve(L11, Lb21_eff, max(base, B // 4), via_inv, invs, c)
             Lb11 = Lb11 - A21_bar.T @ L21
             # the symmetric convention halves the off-diagonal raw gradient
             S[e:, c:e] = 0.5 * A21_bar
             S[c:e, e:] = 0.5 * A21_bar.T
-        S11_raw = _chol_bwd_rec(L11, Lb11, base, invs=invs, g0=c)
+        S11_raw = _chol_bwd_rec(L11, Lb11, base, via_inv, invs, c)
+        S[c:e, c:e] = 0.5 * (S11_raw + S11_raw.T)
+    return S
+
+
+def _chol_bwd_fused(L, L_bar, block, base, via_inv=True, invs=None):
+    """Fused panel-sweep reverse rule (reference `blocked_cholesky.py:556-623`);
+    returns the SYMMETRIC gradient.
+
+    The sweep of `_chol_bwd_iter` with its per-panel solve folded into GEMMs
+    against the panel's explicit inverse L11⁻¹:
+
+    1. with K̄21 = L̄21_eff L11⁻¹, L11ᵀ (K̄21ᵀ L21) = L̄21_effᵀ L21, so the
+       L̄11 correction enters inside Φ: Φ(L11ᵀ tril(L̄11) − L̄21_effᵀ L21);
+    2. the panel's closed form S11_raw = L11⁻ᵀ Φ(·) L11⁻¹ and the cotangent
+       solve K̄21 = L̄21_eff L11⁻¹ share the right factor L11⁻¹, so one
+       (B+m)×B @ B×B GEMM gives both.
+
+    The inverse is the forward's saved one when the panels align, else it
+    is rebuilt with `blocked_tri_inv_lower`."""
+    n = L.shape[-1]
+    B = _sweep_block(n, block)
+    if B is None:
+        K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, invs, 0)
+        return 0.5 * (K_raw + K_raw.T)
+    S = torch.empty_like(L)
+    for kb in reversed(range(n // B)):
+        c = kb * B
+        e = c + B
+        L11 = L[c:e, c:e]
+        if invs is not None and invs.shape[-1] == B:
+            L11inv = invs[kb]
+        else:
+            L11inv = blocked_tri_inv_lower(L11, base=base)
+        G = L11.T @ torch.tril(L_bar[c:e, c:e])
+        if e < n:
+            L21 = L[e:, c:e]
+            Lb21_eff = L_bar[e:, c:e] - 2.0 * (S[e:, e:] @ L21)
+            G = G - Lb21_eff.T @ L21  # fusion 1
+        W = L11inv.T @ _phi(G)
+        if e < n:
+            ZG = torch.cat([W, Lb21_eff]) @ L11inv  # fusion 2
+            S11_raw, A21_bar = ZG[:B], ZG[B:]
+            S[e:, c:e] = 0.5 * A21_bar
+            S[c:e, e:] = 0.5 * A21_bar.T
+        else:
+            S11_raw = W @ L11inv
         S[c:e, c:e] = 0.5 * (S11_raw + S11_raw.T)
     return S
 
 
 class _BlockedCholesky(torch.autograd.Function):
-    """L = blocked_cholesky(tril(A)); the backward returns the symmetric
-    gradient from the panel sweep.  The backward parameters in scope at the
-    forward call are the ones the backward uses."""
+    """L = blocked_cholesky(tril(A)) (or of 0.5·(A + Aᵀ) with `sym`); the
+    backward returns the symmetric gradient, which is also the exact
+    pullback through the `sym` fold.  The backward parameters and the base
+    inverse in scope at the forward call are the ones the backward uses."""
 
     @staticmethod
-    def forward(ctx, A, block, base):
-        if ctx.needs_input_grad[0]:
-            L, invs = _blocked_cholesky_impl(A, block, base, collect_invs=True)
+    def forward(ctx, A, block, base, sym):
+        bwd = _active_bwd_params()
+        _, via_inv, mode, _ = bwd
+        # the inverse stack (nb·B² floats) is kept only where the backward
+        # reads it: the via-inverse solves and the fused sweep
+        if ctx.needs_input_grad[0] and (via_inv or mode == "fused"):
+            L, invs = _blocked_cholesky_impl(A, block, base, sym, collect_invs=True)
         else:
-            L, invs = _blocked_cholesky_impl(A, block, base), None
-        ctx.bwd_params = _active_bwd_params()
+            L, invs = _blocked_cholesky_impl(A, block, base, sym), None
+        ctx.bwd_params = bwd
+        ctx.base_tri_inv = _cfg.active_override("base_tri_inv", tri_inv_block)
         ctx.save_for_backward(L, invs)
         return L
 
     @staticmethod
     def backward(ctx, L_bar):
         L, invs = ctx.saved_tensors
-        bwd_base, bwd_block = ctx.bwd_params
-        return _chol_bwd_iter(L, L_bar, bwd_block, bwd_base, invs=invs), None, None
+        base, via_inv, mode, block = ctx.bwd_params
+        with _cfg.scoped(base_tri_inv=ctx.base_tri_inv):
+            if mode == "fused":
+                out = _chol_bwd_fused(L, L_bar, block, base, via_inv, invs)
+            elif mode == "iter":
+                out = _chol_bwd_iter(L, L_bar, block, base, via_inv, invs)
+            else:
+                K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, invs, 0)
+                out = 0.5 * (K_raw + K_raw.T)
+        return out, None, None, None
 
 
-def blocked_cholesky(A, block=1024, base=256):
-    """Lower Cholesky factor of PSD `A` (N×N) from its lower triangle, with
-    the blocked closed-form reverse rule."""
-    return _BlockedCholesky.apply(A, block, base)
+def blocked_cholesky(A, block=1024, base=256, sym=False):
+    """Lower Cholesky factor of PSD `A` (N×N) from its lower triangle (or of
+    0.5·(A + Aᵀ) with `sym=True`), with the blocked closed-form reverse
+    rule."""
+    return _BlockedCholesky.apply(A, block, base, sym)
+
+
+def blocked_lauum(M, block=1024):
+    """S = Mᵀ M for lower-triangular M with ~n³/6 multiply-adds (LAPACK
+    LAUUM's job, reference `blocked_cholesky.py:706-731`): per panel J
+    (c = J·B), one GEMM M[c:, :c+B]ᵀ @ M[c:, c:c+B] gives the block column
+    S[:c+B, c:c+B]; its strict-upper part is mirrored into S[c:c+B, :c]."""
+    n = M.shape[-1]
+    B = min(block, n)
+    if n % B != 0:
+        return M.T @ M
+    S = torch.empty_like(M)
+    for J in range(n // B):
+        c = J * B
+        col = M[c:, : c + B].T @ M[c:, c : c + B]  # (c+B, B)
+        S[: c + B, c : c + B] = col
+        S[c : c + B, :c] = col[:c].T
+    return S
 
 
 # ---------------------------------------------------------------------------
@@ -409,14 +536,14 @@ def _padded(solve, L, b, block, *args):
     return solve(L, b, block, *args)
 
 
-def cholesky_blocked_padded(A, block=1024, base=256):
+def cholesky_blocked_padded(A, block=1024, base=256, sym=False):
     """`blocked_cholesky` for any n: ragged sizes above `block` are
     identity-padded to the next panel multiple."""
     n = A.shape[-1]
     if n > block and n % block != 0:
-        Lp = blocked_cholesky(_pad_identity(A, _padded_n(n, block)), block, base)
+        Lp = blocked_cholesky(_pad_identity(A, _padded_n(n, block)), block, base, sym)
         return Lp[:n, :n]
-    return blocked_cholesky(A, block, base)
+    return blocked_cholesky(A, block, base, sym)
 
 
 def blocked_solve_lower(L, b, block=1024):

@@ -12,6 +12,7 @@ import stheno_tpu
 import stheno_tpu_torch as stt
 from stheno_tpu.ops import blocked_cholesky as jbc
 from stheno_tpu_torch.ops import blocked_cholesky as tbc
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _psd(seed, n):
@@ -122,3 +123,91 @@ def test_blocked_cholesky_nonsquare_panel_fallback():
     L_ref = np.asarray(jbc.blocked_cholesky(jnp.asarray(K), 256, 64))
     L = tbc.blocked_cholesky(torch.as_tensor(K), 256, 64).numpy()
     np.testing.assert_allclose(L, L_ref, rtol=1e-10, atol=1e-10 * np.abs(L_ref).max())
+
+
+@pytest.mark.parametrize("bwd_block", [128, 256])
+@pytest.mark.parametrize("via_inv", [True, False], ids=["via_inv", "trsm"])
+@pytest.mark.parametrize("mode", ["iter", "rec", "fused"])
+def test_gradient_of_each_backward_mode(mode, via_inv, bwd_block):
+    """Every reverse rule against the reference's under the same
+    `bwd_params`, at N = 512, block 128, base 64.  Backward block 128 lines
+    the sweeps up with the forward's panels (the fused sweep reuses the
+    saved inverses), 256 does not (it rebuilds them)."""
+    n, block, base = 512, 128, 64
+    K = _psd(7, n)
+    ct = np.random.default_rng(8).normal(size=(n, n))
+    params = dict(base=base, via_inv=via_inv, mode=mode, block=bwd_block)
+    with stheno_tpu.config.bwd_params(**params):
+        _, vjp = jax.vjp(lambda A: jbc.blocked_cholesky(A, block, base), jnp.asarray(K))
+        g_ref = np.asarray(vjp(jnp.asarray(ct))[0])
+    A = torch.tensor(K, requires_grad=True)
+    with stt.config.bwd_params(**params):
+        L = tbc.blocked_cholesky(A, block, base)
+    (g,) = torch.autograd.grad(L, A, torch.as_tensor(ct))
+    np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-8, atol=1e-8 * np.abs(g_ref).max())
+
+
+@pytest.mark.parametrize("n,block,base", [(512, 128, 64), (640, 256, 64)], ids=["aligned", "ragged"])
+def test_sym_fold_value_and_gradient(n, block, base):
+    """`sym=True` factors 0.5·(A + Aᵀ) of a non-symmetric A; its gradient is
+    the symmetric pullback.  The ragged case goes through the padded entry
+    point."""
+    A_np = _psd(9, n) + np.random.default_rng(10).normal(size=(n, n))
+    ct = np.random.default_rng(11).normal(size=(n, n))
+    L_ref, vjp = jax.vjp(lambda A: jbc.cholesky_blocked_padded(A, block, base, True), jnp.asarray(A_np))
+    g_ref = np.asarray(vjp(jnp.asarray(ct))[0])
+    A = torch.tensor(A_np, requires_grad=True)
+    L = tbc.cholesky_blocked_padded(A, block, base, sym=True)
+    (g,) = torch.autograd.grad(L, A, torch.as_tensor(ct))
+    L_ref = np.asarray(L_ref)
+    np.testing.assert_allclose(L.detach().numpy(), L_ref, rtol=1e-10, atol=1e-10 * np.abs(L_ref).max())
+    np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-8, atol=1e-8 * np.abs(g_ref).max())
+    # the fold is the factor of the symmetrised matrix
+    L_sym = tbc.cholesky_blocked_padded(torch.as_tensor(0.5 * (A_np + A_np.T)), block, base)
+    np.testing.assert_allclose(L.detach().numpy(), L_sym.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,block", [(512, 128), (512, 512), (500, 128)], ids=["panels", "one", "ragged"])
+def test_blocked_lauum(n, block):
+    M = np.linalg.cholesky(_psd(12, n))
+    want = np.asarray(jbc.blocked_lauum(jnp.asarray(M), block))
+    got = tbc.blocked_lauum(torch.as_tensor(M), block).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    np.testing.assert_allclose(got, M.T @ M, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+
+def test_base_overrides_are_honoured_and_do_not_leak():
+    """The scoped `base_cholesky` and `base_tri_inv` replace kernels 2 and 3
+    (here their plain versions) in the forward and in the backward run
+    after the scope closed, and nothing of them survives the scope, even
+    one left by an exception."""
+    calls = {"chol": 0, "inv": 0}
+
+    def spy_chol(A):
+        calls["chol"] += 1
+        return tbc.torch_chol_lower(A)
+
+    def spy_inv(L):
+        calls["inv"] += 1
+        return tbc.torch_tri_inv_lower(L)
+
+    n, block, base = 512, 128, 64
+    K = _psd(13, n)
+    L_default = tbc.blocked_cholesky(torch.as_tensor(K), block, base)
+    A = torch.tensor(K, requires_grad=True)
+    with stt.config.scoped(base_cholesky=spy_chol, base_tri_inv=spy_inv), \
+            stt.config.bwd_params(mode="fused", block=256):
+        L = tbc.blocked_cholesky(A, block, base)
+    fwd_calls = dict(calls)
+    assert fwd_calls["chol"] > 0 and fwd_calls["inv"] > 0
+    torch.autograd.grad(L, A, torch.ones_like(L))
+    assert calls["inv"] > fwd_calls["inv"]  # the fused sweep rebuilt its inverses with it
+    np.testing.assert_allclose(L.detach().numpy(), L_default.numpy(), rtol=1e-12, atol=1e-12)
+    with pytest.raises(ZeroDivisionError):
+        with stt.config.scoped(base_cholesky=spy_chol, base_tri_inv=spy_inv):
+            1 / 0
+    before = dict(calls)
+    tbc.blocked_cholesky(torch.as_tensor(K), block, base)
+    assert calls == before
+    assert stt.config.active_override("base_cholesky", None) is None
+    assert stt.config.active_override("base_tri_inv", None) is None

@@ -70,6 +70,13 @@ def test_chol_and_tri_inv_match_plain(cuda_device, batch, n):
         assert torch.equal(tcb.tri_inv_block(Lp), M)
 
 
+def test_km_se_d1_matches_plain(cuda_device):
+    x = torch.linspace(-5.0, 5.0, 4099, device=cuda_device)
+    K = tkm.km_se_d1(x)
+    torch.testing.assert_close(K, tkm.km_se_d1_plain(x), rtol=0, atol=1e-5)
+    assert bool((K.diagonal() == 1.5).all())
+
+
 def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
     kern.reset_counters()
     A = _spd_stack(1, 64, 10, torch.float32, cuda_device)[0]
@@ -77,9 +84,10 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
     tcb.tri_inv_block(L)
     x = torch.linspace(-1, 1, 50, device=cuda_device)[:, None]
     tkm.kernelmatrix_forward(x, None, "se", torch.tensor(1.0, device=cuda_device))
+    tkm.km_se_d1(x[:, 0])
     torch.cuda.synchronize()
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
-        "kernelmatrix": 1, "chol_block": 1, "tri_inv_block": 1}
+        "kernelmatrix": 1, "chol_block": 1, "tri_inv_block": 1, "km_se_d1": 1}
     with pytest.raises(TypeError):
         tcb.chol_block(A.half())
     with pytest.raises(TypeError):  # the kernels are f32 only

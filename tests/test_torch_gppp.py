@@ -14,6 +14,7 @@ import stheno_tpu_torch as stt
 from __graft_entry__ import _flagship
 from stheno_tpu_torch import entry
 from stheno_tpu_torch.convert import theta_from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 DTYPES = {"f64": (jnp.float64, torch.float64, 1e-9), "f32": (jnp.float32, torch.float32, 1e-3)}
 
@@ -190,15 +191,17 @@ def test_error_paths():
 def test_config_scopes_nest_and_unwind():
     from stheno_tpu_torch.ops import blocked_cholesky as tbc
 
-    assert tbc._active_bwd_params() == (256, 4096)
+    assert tbc._active_bwd_params() == (256, True, "iter", 4096)
     with stt.config.bwd_params(block=512):
-        with stt.config.bwd_params(base=128):
-            assert tbc._active_bwd_params() == (128, 512)
+        with stt.config.bwd_params(base=128, via_inv=False, mode="fused"):
+            assert tbc._active_bwd_params() == (128, False, "fused", 512)
         with pytest.raises(ZeroDivisionError):
-            with stt.config.bwd_params(base=64):
+            with stt.config.bwd_params(base=64, mode="rec"):
                 1 / 0
-        assert tbc._active_bwd_params() == (256, 512)
-    assert tbc._active_bwd_params() == (256, 4096)
+        assert tbc._active_bwd_params() == (256, True, "iter", 512)
+    assert tbc._active_bwd_params() == (256, True, "iter", 4096)
+    with pytest.raises(ValueError):
+        stt.config.bwd_params(mode="recursive")
 
 
 def _kernel_pair(name):

@@ -16,9 +16,10 @@ import torch
 
 import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
-from stheno_tpu_torch import entry
+from stheno_tpu_torch import entry, markov, perf_probe
 from stheno_tpu_torch.convert import theta_from_numpy
 from stheno_tpu_torch.cuda import _build
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 # the package, and what runs on the card without JAX
@@ -75,11 +76,22 @@ def test_forbidden_tells_the_jax_package_from_the_port():
     assert not _forbidden("stheno_tpu_torch") and not _forbidden("stheno_tpu_torch.ops")
 
 
+def test_the_new_modules_are_walked():
+    for name in ("markov", "perf_probe"):
+        assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
+        assert f"stheno_tpu_torch.{name}" in MODULES
+
+
 @pytest.mark.parametrize("call", [
     lambda: entry.flagship(512),
     lambda: entry.flagship_data(512),
     lambda: theta_from_numpy({"v": np.ones(())}),
-], ids=["flagship", "flagship_data", "theta_from_numpy"])
+    lambda: perf_probe.Probe(n=8),
+    lambda: perf_probe.main(["--n", "8", "null"]),
+    lambda: markov.markov_gp_logpdf(stt.Matern32Kernel(), np.linspace(0, 1, 5), np.zeros(5), 0.1),
+    lambda: markov.sde_representation(stt.Matern32Kernel()),
+], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
+        "markov_gp_logpdf", "sde_representation"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -96,7 +108,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert np.isfinite(val.item()) and all(np.isfinite(g.item()) for g in grad.values())
     assert m.shape == v.shape == (64,)
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
-        "kernelmatrix": 0, "chol_block": 0, "tri_inv_block": 0}
+        "kernelmatrix": 0, "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0}
 
 
 def test_build_raises_with_the_reason_when_nvcc_is_missing(monkeypatch, tmp_path):

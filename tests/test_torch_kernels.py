@@ -23,6 +23,7 @@ from stheno_tpu.ops import blocked_cholesky as jbc
 from stheno_tpu_torch.cuda import chol_block as tcb
 from stheno_tpu_torch.cuda import kernelmatrix as tkm
 from stheno_tpu_torch.ops import blocked_cholesky as tbc
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 KINDS = {
     "se": (st.SEKernel, stt.SEKernel),

@@ -12,6 +12,7 @@ from stheno_tpu import ops as jops
 from stheno_tpu.ops import chol as jchol
 from stheno_tpu_torch import ops as tops
 from stheno_tpu_torch.ops import chol as tchol
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 ZERO = (5, 3)  # the pair (x_5, y_3) is at distance exactly 0
