@@ -9,8 +9,8 @@ the CUDA toolkit.  In one run it
 1. builds the CUDA kernels from `stheno_tpu_torch/cuda/csrc/` (one nvcc
    per source, in parallel) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes and at a ragged one (kernel 1 also in f64), with the
-   tolerance stated;
+   flagship's shapes and at ragged ones (kernel 1 also in f64; kernel 2
+   also at n = 1, 33, 255 and its limit 288), with the tolerance stated;
 3. runs the flagship value-and-gradient step (`-logpdf` of f3 = f1 + f2
    and its gradient in (v1, l1, l2, noise)) at N = 16384 in f32 through the
    blocked path, counts each kernel's launches in that step, and checks the
@@ -28,8 +28,9 @@ the CUDA toolkit.  In one run it
    f32 against f64 on the card, logpdf at N = 16384 against the dense f64
    logpdf, and finite posterior marginals;
 7. times the step, its stages, `predict` and each kernel beside its plain
-   version, its bound and its nearest single PyTorch call, and breaks one
-   step and one `predict` down by device kernel with torch.profiler.
+   version, its bound and its nearest single PyTorch call (kernel 2 also by
+   block size, back to back and alone on the device), and breaks one step
+   and one `predict` down by device kernel with torch.profiler.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -58,6 +59,9 @@ PROBE_ROWS = ("null", "chol_cur", "chol_grad", "chol_grad_fused4096", "chol_btri
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SMS = 132
+#: kernel 2's time at (1, 256, 256) in its first design, a column sweep with
+#: two barriers per column (chip_smoke.py on an H100 80GB HBM3, 700 W)
+CHOL_PREVIOUS_MS = 0.3196
 # device kernels grouped by a substring of their (lower-cased) names
 PROFILE_KINDS = (
     ("kernelmatrix", ("km_kernel",)),
@@ -102,6 +106,25 @@ def event_ms(fn, reps, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, kernel, reps, warmup=2):
+    """Mean device duration in ms of the launches of `kernel` (a substring of
+    the device kernel's name) over `reps` calls of `fn()`, from a
+    torch.profiler trace: the kernel's own time, without the host's gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else "not measured (the trace holds no such kernel)"
 
 
 def host_ms(fn, reps, warmup=1):
@@ -253,24 +276,31 @@ def main():
         fx = build(theta)(stt.GPPPInput("f3", x), theta["noise"])
         K_main = fx.cov()
     A256 = K_main[:256, :256].contiguous()[None]
+    A_main4 = (K_main[:1024, :1024].reshape(4, 256, 4, 256)
+               .diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous())
     A_ragged = spd_blocks(torch, 3, 200, f32, dev, seed=1)
     A_card = spd_blocks(torch, SMS, 256, f32, dev, seed=2)  # one block per SM
     CHOL_TOL = 1e-4  # relative to max|L|: fp32 sweeps in two summation orders
     TRI_TOL = 1e-4   # relative to max|L⁻¹|
     chol_checks = []
-    for label, A in (("main (1, 256, 256)", A256), ("ragged (3, 200, 200)", A_ragged),
-                     (f"card ({SMS}, 256, 256)", A_card)):
+    # kernel 2 pads to whole 32×32 tiles: one padded tile (n = 1), a tile and
+    # a row (33), one row short (255) and its shared-memory limit (288)
+    chol_cases = [("main (1, 256, 256)", A256), ("main (4, 256, 256)", A_main4),
+                  ("ragged (3, 200, 200)", A_ragged), (f"card ({SMS}, 256, 256)", A_card)]
+    chol_cases += [(f"tiles (2, {n}, {n})", spd_blocks(torch, 2, n, f32, dev, seed=3 + n))
+                   for n in (1, 33, 255, 288)]
+    for label, A in chol_cases:
         L = chol_block(A)
         Lp = chol_block_plain(A)
         rel = ((L - Lp).abs().max() / Lp.abs().max()).item()
         chol_checks.append({"case": label, "max_rel_err": rel,
                             "max_abs_err": (L - Lp).abs().max().item()})
         require(rel <= CHOL_TOL, f"chol_block {label}: rel err {rel} > {CHOL_TOL}")
-    chol_err_main = chol_checks[0]["max_abs_err"]
+    chol_err_main = max(c["max_abs_err"] for c in chol_checks[:2])
     emit({"check": "chol_block", "tolerance_rel": CHOL_TOL, "cases": chol_checks})
+    del chol_cases
 
-    L4 = chol_block_plain(K_main[:1024, :1024].reshape(4, 256, 4, 256)
-                          .diagonal(dim1=0, dim2=2).permute(2, 0, 1).contiguous())
+    L4 = chol_block_plain(A_main4)
     L1 = L4[:1].contiguous()
     L_ragged = chol_block_plain(A_ragged)
     L_card = chol_block_plain(A_card)
@@ -560,6 +590,16 @@ def main():
     ch_ms = event_ms(lambda: chol_block(A1), reps=50)
     ch_plain_ms = event_ms(lambda: chol_block_plain(A1), reps=3)
     ch_lib_ms = event_ms(lambda: torch.linalg.cholesky(A1), reps=50)
+    # the same factor without the host sync on `info`
+    ch_lib_ex_ms = event_ms(lambda: torch.linalg.cholesky_ex(A1), reps=50)
+    # kernel 2 by block size: n = 32 is one diagonal tile (load, one warp's
+    # factor, store), so the ladder shows what the tile columns add.  Back to
+    # back (CUDA events) and the kernel's own device time (profiler)
+    ch_by_n, ch_by_n_dev = {}, {}
+    for n in (32, 64, 128, 256):
+        An = spd_blocks(torch, 1, n, f32, dev, seed=n)
+        ch_by_n[n] = event_ms(lambda: chol_block(An), reps=50)
+        ch_by_n_dev[n] = device_ms(lambda: chol_block(An), "chol_block_kernel", reps=20)
     # kernels 2 and 3 read a block's lower triangle and write the whole block
     blk_bytes = (256 * 257 // 2 + 256 * 256) * 4
     ch_bound, ch_by = bound(blk_bytes, 256**3 / 3)
@@ -594,8 +634,13 @@ def main():
          "replaces": "stheno_tpu/experimental/pallas/chol_block.py:66",
          "launches": step_counts["chol_block"], "max_abs_err": chol_err_main,
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound, "bound_by": ch_by,
-         "library_ms": ch_lib_ms, "shape": "(1, 256, 256) f32",
-         "one_cta_bound_ms": per_cta_ms},
+         "library_ms": ch_lib_ms, "library_ex_ms": ch_lib_ex_ms, "shape": "(1, 256, 256) f32",
+         "one_cta_bound_ms": per_cta_ms, "previous_ms": CHOL_PREVIOUS_MS,
+         "base_chain_ms": {k: res[f"base_chain_{k}"]["median_ms"] for k in ("pal", "lax")},
+         "by_n_ms": ch_by_n, "by_n_device_ms": ch_by_n_dev,
+         "design": "32x32 tiles in shared memory, right-looking with a one-column lookahead: "
+                   "diagonal tile in one warp, panel solve a row per thread, trailing update "
+                   "in 8x4 register micro-tiles; 18 CTA barriers at n=256"},
         {"name": "tri_inv_block", "route": "cuda",
          "source": "stheno_tpu_torch/cuda/csrc/chol_block.cu",
          "replaces": "stheno_tpu/experimental/pallas/chol_block.py:110",

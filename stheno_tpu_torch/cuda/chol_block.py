@@ -4,16 +4,18 @@ f32 blocks, the base cases of the blocked Cholesky.
 Replace the Pallas kernels `stheno_tpu/experimental/pallas/chol_block.py`
 (`chol_block`, `tri_inv_block`) with the CUDA kernels in
 `csrc/chol_block.cu`, one CTA per block of the batch.  On an H100 neither is
-bound by the card's bytes or flops at the main path's 256×256 blocks: what
-bounds them is one SM's latency along a chain of dependent steps.  The
-kernels keep the packed working triangle in shared memory for the whole
-sweep, so no step touches device memory; the inverse gives each thread one
-column and needs no barrier.  See the source for the design.
+bound by the card's bytes or flops at the main path's 256×256 blocks: each
+block runs on one SM, so one SM's fp32 rate and the chain of dependent
+diagonal steps bound them.  Kernel 2 is a tiled right-looking Cholesky with
+32×32 tiles in shared memory (diagonal tile in one warp, panel solve,
+register-blocked trailing update); kernel 3 keeps the packed triangle of the
+inverse in shared memory and gives each thread one column.  See the source
+for the design.
 
 On a CPU tensor each wrapper runs its plain PyTorch version, which repeats
-the kernel's sweep; on a CUDA tensor it launches the kernel or raises (for
-a dtype other than f32, or a block whose triangle does not fit in shared
-memory: n ≤ 339 for kernel 2, n ≤ 337 for kernel 3).
+the kernel's order of operations; on a CUDA tensor it launches the kernel or
+raises (for a dtype other than f32, or a block whose working set does not
+fit in shared memory: n ≤ 288 for kernel 2, n ≤ 337 for kernel 3).
 """
 
 from __future__ import annotations
@@ -32,35 +34,63 @@ TRI_INV_LAUNCHES = _build.LaunchCounter("tri_inv_block")
 SMEM_LIMIT = 232448
 
 
-def _tri_inv_staging(n):
-    """Floats kernel 3 stages beside its triangle: 4 rows × 32 entries of L
-    per warp, ≤ 8 warps."""
-    return 4 * min(256, -(-n // 32) * 32)
+#: Tile edge of kernel 2 (`csrc/chol_block.cu:kT`).
+TILE = 32
 
 
-def _fits(n, extra):
-    return (n * (n + 1) // 2 + extra) * 4 <= SMEM_LIMIT
+def _smem_bytes(name, n):
+    """Dynamic shared memory of kernel `name` for an n×n block, as its C
+    entry point computes it."""
+    if name == "chol_block":
+        nt = -(-n // TILE)
+        # the lower tiles, the transposed panel (nt − 1 tiles), the diagonal
+        # tile's factor transposed, two broadcast rows and the pivots' rsqrts
+        return ((nt * (nt + 1) // 2 + nt) * TILE * TILE + 3 * TILE) * 4
+    # the packed triangle of M, and 4 rows × 32 entries of L per warp (≤ 8 warps)
+    return (n * (n + 1) // 2 + 4 * min(256, -(-n // 32) * 32)) * 4
+
+
+def _fits(name, n):
+    """Whether kernel `name` takes n×n blocks in one CTA's shared memory."""
+    return _smem_bytes(name, n) <= SMEM_LIMIT
 
 
 def fits(n):
-    """Whether kernels 2 and 3 both take n×n blocks: the packed triangle
-    and their working floats fit in shared memory."""
-    return _fits(n, n) and _fits(n, _tri_inv_staging(n))
+    """Whether kernels 2 and 3 both take n×n blocks."""
+    return _fits("chol_block", n) and _fits("tri_inv_block", n)
 
 
 def chol_block_plain(A):
-    """Right-looking column sweep over tril(A), batched over leading dims:
-    L[k:, k] = A[k:, k]·rsqrt(A[k, k]), then A[i, j] −= L[i, k]·L[j, k].
-    A non-positive pivot gives NaN (never raises)."""
-    S = torch.tril(A).clone()
-    n = S.shape[-1]
-    for k in range(n):
-        piv = S[..., k, k]
-        s = torch.where(piv > 0, torch.rsqrt(piv), torch.full_like(piv, float("nan")))
-        S[..., k:, k] *= s[..., None]
-        col = S[..., k + 1:, k]
-        S[..., k + 1:, k + 1:] -= col[..., :, None] * col[..., None, :]
-    return torch.tril(S)
+    """Tiled right-looking Cholesky of tril(A), batched over leading dims, in
+    the kernel's order: A is padded to whole TILE×TILE tiles with the
+    identity; for each tile column k the diagonal tile is factored by a
+    column sweep (L[j:, j] = S[j:, j]·s_j with s_j = rsqrt(S[j, j])), the
+    panel below it solved by substitution (x_j = a_j·s_j, then a_c −=
+    x_j·L[c, j]), and the trailing tiles take S −= P·Pᵀ.  A non-positive
+    pivot gives NaN (never raises)."""
+    n = A.shape[-1]
+    nt = -(-n // TILE)
+    npad = nt * TILE
+    S = torch.zeros(*A.shape[:-2], npad, npad, dtype=A.dtype, device=A.device)
+    S[..., :n, :n] = torch.tril(A)
+    S.diagonal(dim1=-2, dim2=-1)[..., n:] = 1.0
+    nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
+    for k in range(nt):
+        lo, hi = k * TILE, (k + 1) * TILE
+        D = S[..., lo:hi, lo:hi]
+        P = S[..., hi:, lo:hi]
+        s = []
+        for j in range(TILE):
+            piv = D[..., j, j]
+            s.append(torch.where(piv > 0, torch.rsqrt(piv), nan))
+            D[..., j:, j] *= s[j][..., None]
+            col = D[..., j + 1:, j]
+            D[..., j + 1:, j + 1:] -= col[..., :, None] * col[..., None, :]
+        for j in range(TILE):
+            P[..., :, j] *= s[j][..., None]
+            P[..., :, j + 1:] -= P[..., :, j, None] * D[..., None, j + 1:, j]
+        S[..., hi:, hi:] -= P @ P.mT
+    return torch.tril(S[..., :n, :n])
 
 
 def tri_inv_block_plain(L):
@@ -76,17 +106,16 @@ def tri_inv_block_plain(L):
     return M
 
 
-def _launch(name: str, counter, A, extra: int):
-    """Launch `stheno_<name>_f32` on contiguous (batch, n, n) f32 `A`; its
-    packed triangle and `extra` more floats live in shared memory."""
+def _launch(name: str, counter, A):
+    """Launch `stheno_<name>_f32` on contiguous (batch, n, n) f32 `A`."""
     if A.dim() != 3 or A.shape[1] != A.shape[2] or not A.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous (batch, n, n) tensor, got {tuple(A.shape)}")
     if A.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32, got {A.dtype}")
     batch, n, _ = A.shape
-    if not _fits(n, extra):
-        raise ValueError(f"{name}: the packed triangle of a {n}×{n} block does not fit "
-                         f"in {SMEM_LIMIT} bytes of shared memory")
+    if not _fits(name, n):
+        raise ValueError(f"{name}: a {n}×{n} block needs {_smem_bytes(name, n)} bytes of "
+                         f"shared memory, more than the {SMEM_LIMIT} one CTA may use")
     out = torch.empty_like(A)
     lib = _build.library("chol_block")
     fn = getattr(lib, f"stheno_{name}_f32")
@@ -107,7 +136,7 @@ def chol_block(A):
         return chol_block_plain(A)
     if A.dim() == 2:
         return chol_block(A[None])[0]
-    return _launch("chol_block", CHOL_LAUNCHES, A.contiguous(), extra=A.shape[-1])
+    return _launch("chol_block", CHOL_LAUNCHES, A.contiguous())
 
 
 def tri_inv_block(L):
@@ -116,4 +145,4 @@ def tri_inv_block(L):
         return tri_inv_block_plain(L)
     if L.dim() == 2:
         return tri_inv_block(L[None])[0]
-    return _launch("tri_inv_block", TRI_INV_LAUNCHES, L.contiguous(), extra=_tri_inv_staging(L.shape[-1]))
+    return _launch("tri_inv_block", TRI_INV_LAUNCHES, L.contiguous())

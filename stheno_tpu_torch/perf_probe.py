@@ -52,8 +52,8 @@ ring_p1 (the distributed tiers are not ported).
 
 The Cholesky probes build K with kernel 4 (one write, as XLA's fused
 broadcast is in the reference) and add the noise into its diagonal in
-place.  Base blocks that do not fit kernels 2 and 3 (their triangles live
-in shared memory: `cuda/chol_block.py:fits`, today n ≤ 337) run on the
+place.  Base blocks that do not fit kernels 2 and 3 (their working sets
+live in shared memory: `cuda/chol_block.py:fits`, today n ≤ 288) run on the
 library base cases, as the ladder's rows with base 512 or 1024 do, and say
 so.
 """

@@ -51,12 +51,19 @@ def test_kernelmatrix_matches_plain(cuda_device, kind, dtype):
 
 
 @pytest.mark.parametrize("batch,n", [
-    (4, 256),     # the main path's shapes
+    (1, 256),     # the main path's shapes
+    (4, 256),
     (3, 200),     # ragged
     (132, 256),   # one block per SM
+    (2, 1),       # one padded tile
+    (2, 33),      # a tile and one row
+    (1, 255),
+    (1, 288),     # kernel 2's limit
 ])
 def test_chol_and_tri_inv_match_plain(cuda_device, batch, n):
     A = _spd_stack(batch, n, 9, torch.float32, cuda_device)
+    # only tril(A) is read: garbage in the strict upper triangle is ignored
+    A = A + torch.triu(torch.full_like(A, 1e3), 1)
     L = tcb.chol_block(A)
     Lp = tcb.chol_block_plain(A)
     torch.testing.assert_close(L, Lp, rtol=0, atol=1e-4 * Lp.abs().max().item())
@@ -92,8 +99,10 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
         tcb.chol_block(A.half())
     with pytest.raises(TypeError):  # the kernels are f32 only
         tcb.tri_inv_block(L.double())
-    with pytest.raises(ValueError):  # the packed triangle exceeds shared memory
+    with pytest.raises(ValueError):  # the working set exceeds shared memory
         tcb.chol_block(_spd_stack(1, 400, 11, torch.float32, cuda_device))
+    with pytest.raises(ValueError):
+        tcb.chol_block(_spd_stack(1, 289, 11, torch.float32, cuda_device))
     with pytest.raises(ValueError):
         tcb.tri_inv_block(L[None, :, :10])
     one = torch.tensor(1.0, device=cuda_device)

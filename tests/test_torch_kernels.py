@@ -124,17 +124,26 @@ def _psd(rng, n, dtype=np.float64):
     return (A @ A.T + n * np.eye(n)).astype(dtype)
 
 
-@pytest.mark.parametrize("n", [128, 256])
-def test_plain_chol_block_matches_pallas_interpret(n):
-    K = _psd(np.random.default_rng(4), n, np.float32)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 128, 200, 256])
+def test_plain_chol_block_matches_pallas_interpret(n, dtype):
+    """The tiled plain version (32×32 tiles, identity padding) at ragged n,
+    n < 32 and whole tiles, against the Pallas kernel in interpret mode and
+    LAPACK."""
+    K = _psd(np.random.default_rng(4), n, dtype)
     L_ref = np.linalg.cholesky(K)
     L_pallas = np.asarray(chol_block_auto(jnp.asarray(K)))
     # only tril(A) is read: garbage in the strict upper triangle is ignored
     A = torch.as_tensor(K + np.triu(np.full_like(K, 1e3), 1))
     L = tcb.chol_block(A).numpy()
-    # tolerances of tests/test_ops.py:324-337
-    np.testing.assert_allclose(L, L_ref, atol=2e-4 * np.abs(L_ref).max())
-    np.testing.assert_allclose(L, L_pallas, atol=2e-4 * np.abs(L_ref).max())
+    assert L.dtype == dtype and np.all(np.triu(L, 1) == 0)
+    if dtype == np.float32:
+        # tolerances of tests/test_ops.py:324-337
+        np.testing.assert_allclose(L, L_ref, atol=2e-4 * np.abs(L_ref).max())
+        np.testing.assert_allclose(L, L_pallas, atol=2e-4 * np.abs(L_ref).max())
+    else:
+        np.testing.assert_allclose(L, L_ref, rtol=1e-10, atol=1e-14 * np.abs(L_ref).max())
+        np.testing.assert_allclose(L, L_pallas, rtol=1e-10, atol=1e-14 * np.abs(L_ref).max())
 
 
 @pytest.mark.parametrize("n", [128, 256])
@@ -146,11 +155,14 @@ def test_plain_tri_inv_block_matches_pallas_interpret(n):
     np.testing.assert_allclose(M, M_pallas, atol=5e-5 * np.abs(M_pallas).max())
 
 
-def test_chol_block_nonpositive_pivot_gives_nan():
-    A = torch.eye(4, dtype=torch.float64)
-    A[2, 2] = -1.0
+@pytest.mark.parametrize("n,bad", [(4, 2), (40, 35), (70, 33)])
+def test_chol_block_nonpositive_pivot_gives_nan(n, bad):
+    """A non-positive pivot gives NaN from rsqrt and never raises, in the
+    first tile or a later one; the columns before it are untouched."""
+    A = torch.eye(n, dtype=torch.float64)
+    A[bad, bad] = -1.0
     L = tcb.chol_block(A)
-    assert torch.isnan(L[2, 2]) and torch.all(L[:2, :2] == torch.eye(2, dtype=torch.float64))
+    assert torch.isnan(L[bad, bad]) and torch.all(L[:bad, :bad] == torch.eye(bad, dtype=torch.float64))
 
 
 def test_tri_inv_batched_dispatch():
@@ -173,5 +185,7 @@ def test_plain_versions_repeat_kernel_arithmetic_on_ragged_batches():
     A = np.stack([_psd(rng, 200) for _ in range(3)])
     L = tcb.chol_block(torch.as_tensor(A)).numpy()
     np.testing.assert_allclose(L, np.linalg.cholesky(A), rtol=1e-10, atol=1e-12)
+    for Li, Ai in zip(L, A):  # the batch, block by block, against the Pallas kernel
+        np.testing.assert_allclose(Li, np.asarray(chol_block_auto(jnp.asarray(Ai))), rtol=1e-10, atol=1e-12)
     M = tcb.tri_inv_block(torch.as_tensor(L)).numpy()
     np.testing.assert_allclose(M, np.linalg.inv(L), rtol=1e-9, atol=1e-13)
