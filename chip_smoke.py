@@ -59,9 +59,6 @@ PROBE_ROWS = ("null", "chol_cur", "chol_grad", "chol_grad_fused4096", "chol_btri
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SMS = 132
-#: kernel 2's time at (1, 256, 256) in its first design, a column sweep with
-#: two barriers per column (chip_smoke.py on an H100 80GB HBM3, 700 W)
-CHOL_PREVIOUS_MS = 0.3196
 # device kernels grouped by a substring of their (lower-cased) names
 PROFILE_KINDS = (
     ("kernelmatrix", ("km_kernel",)),
@@ -124,7 +121,8 @@ def device_ms(fn, kernel, reps, warmup=2):
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    return sum(spans) / len(spans) / 1e3 if spans else "not measured (the trace holds no such kernel)"
+    require(spans, f"the profiler's trace holds no device kernel named like {kernel!r}")
+    return sum(spans) / len(spans) / 1e3
 
 
 def host_ms(fn, reps, warmup=1):
@@ -216,7 +214,8 @@ def main():
     import stheno_tpu_torch as stt
     from stheno_tpu_torch import cuda as kern
     from stheno_tpu_torch.cuda.chol_block import (
-        chol_block, chol_block_plain, tri_inv_block, tri_inv_block_plain)
+        _smem_bytes, chol_block, chol_block_plain, library_smem_bytes, tri_inv_block,
+        tri_inv_block_plain)
     from stheno_tpu_torch import perf_probe as pp
     from stheno_tpu_torch.cuda.kernelmatrix import (
         kernelmatrix_forward, kernelmatrix_plain, km_se_d1, km_se_d1_plain)
@@ -298,6 +297,12 @@ def main():
         require(rel <= CHOL_TOL, f"chol_block {label}: rel err {rel} > {CHOL_TOL}")
     chol_err_main = max(c["max_abs_err"] for c in chol_checks[:2])
     emit({"check": "chol_block", "tolerance_rel": CHOL_TOL, "cases": chol_checks})
+    # `fits` (and so the probe's choice of base case) reads a Python copy of
+    # kernels 2 and 3's shared-memory sizes: it must agree with the library
+    for name in ("chol_block", "tri_inv_block"):
+        for n in (1, 33, 255, 256, 288, 289, 337, 338):
+            require(_smem_bytes(name, n) == library_smem_bytes(name, n),
+                    f"{name}: the Python copy of its shared-memory size differs at n = {n}")
     del chol_cases
 
     L4 = chol_block_plain(A_main4)
@@ -600,6 +605,7 @@ def main():
         An = spd_blocks(torch, 1, n, f32, dev, seed=n)
         ch_by_n[n] = event_ms(lambda: chol_block(An), reps=50)
         ch_by_n_dev[n] = device_ms(lambda: chol_block(An), "chol_block_kernel", reps=20)
+    emit({"chol_block_by_n": {"by_n_ms": ch_by_n, "by_n_device_ms": ch_by_n_dev, "card": card}})
     # kernels 2 and 3 read a block's lower triangle and write the whole block
     blk_bytes = (256 * 257 // 2 + 256 * 256) * 4
     ch_bound, ch_by = bound(blk_bytes, 256**3 / 3)
@@ -635,12 +641,12 @@ def main():
          "launches": step_counts["chol_block"], "max_abs_err": chol_err_main,
          "ms": ch_ms, "plain_ms": ch_plain_ms, "bound_ms": ch_bound, "bound_by": ch_by,
          "library_ms": ch_lib_ms, "library_ex_ms": ch_lib_ex_ms, "shape": "(1, 256, 256) f32",
-         "one_cta_bound_ms": per_cta_ms, "previous_ms": CHOL_PREVIOUS_MS,
-         "base_chain_ms": {k: res[f"base_chain_{k}"]["median_ms"] for k in ("pal", "lax")},
-         "by_n_ms": ch_by_n, "by_n_device_ms": ch_by_n_dev,
+         "one_cta_bound_ms": per_cta_ms,
          "design": "32x32 tiles in shared memory, right-looking with a one-column lookahead: "
                    "diagonal tile in one warp, panel solve a row per thread, trailing update "
-                   "in 8x4 register micro-tiles; 18 CTA barriers at n=256"},
+                   "in 8x4 register micro-tiles; 18 CTA barriers at n=256",
+         "previous_design": "a right-looking sweep over single columns, two CTA barriers "
+                            "per column (512 at n=256)"},
         {"name": "tri_inv_block", "route": "cuda",
          "source": "stheno_tpu_torch/cuda/csrc/chol_block.cu",
          "replaces": "stheno_tpu/experimental/pallas/chol_block.py:110",

@@ -39,8 +39,9 @@ TILE = 32
 
 
 def _smem_bytes(name, n):
-    """Dynamic shared memory of kernel `name` for an n×n block, as its C
-    entry point computes it."""
+    """Dynamic shared memory of kernel `name` for an n×n block: a copy of
+    `stheno_<name>_smem_bytes` in `csrc/chol_block.cu` (see
+    `library_smem_bytes`), so that `fits` answers without a build."""
     if name == "chol_block":
         nt = -(-n // TILE)
         # the lower tiles, the transposed panel (nt − 1 tiles), the diagonal
@@ -48,6 +49,15 @@ def _smem_bytes(name, n):
         return ((nt * (nt + 1) // 2 + nt) * TILE * TILE + 3 * TILE) * 4
     # the packed triangle of M, and 4 rows × 32 entries of L per warp (≤ 8 warps)
     return (n * (n + 1) // 2 + 4 * min(256, -(-n // 32) * 32)) * 4
+
+
+def library_smem_bytes(name, n):
+    """Dynamic shared memory of kernel `name` for an n×n block, as the built
+    library computes it (builds the library: needs nvcc)."""
+    fn = getattr(_build.library("chol_block"), f"stheno_{name}_smem_bytes")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(n)
 
 
 def _fits(name, n):

@@ -430,13 +430,25 @@ tri_inv_kernel(const float* __restrict__ Lin, float* __restrict__ M, int n) {
 
 }  // namespace
 
+// Dynamic shared memory in bytes of each kernel for an n x n block.
+// cuda/chol_block.py mirrors both sizes to decide on the CPU which n fit;
+// the gpu tests hold its copy against these.
+extern "C" int stheno_chol_block_smem_bytes(int n) {
+  return chol_smem_floats(n) * static_cast<int>(sizeof(float));
+}
+
+extern "C" int stheno_tri_inv_block_smem_bytes(int n) {
+  const int warps = (n + 31) / 32 < kTriThreads / 32 ? (n + 31) / 32 : kTriThreads / 32;
+  return (warps * 32 * kTriRows + tri(n)) * static_cast<int>(sizeof(float));
+}
+
 // A, L, M: (batch, n, n) f32, row-major and contiguous.  The caller checks
-// that the kernel's shared memory fits (cuda/chol_block.py mirrors both
-// sizes).  Each returns the CUDA error code of the launch (0 on success).
+// that the kernel's shared memory fits.  Each returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int stheno_chol_block_f32(const float* A, float* L, int batch, int n,
                                      cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const int smem = chol_smem_floats(n) * static_cast<int>(sizeof(float));
+  const int smem = stheno_chol_block_smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(chol_block_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -448,7 +460,7 @@ extern "C" int stheno_tri_inv_block_f32(const float* L, float* M, int batch, int
                                         cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   const int warps = (n + 31) / 32 < kTriThreads / 32 ? (n + 31) / 32 : kTriThreads / 32;
-  const int smem = (warps * 32 * kTriRows + tri(n)) * static_cast<int>(sizeof(float));
+  const int smem = stheno_tri_inv_block_smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(tri_inv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

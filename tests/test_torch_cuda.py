@@ -77,6 +77,13 @@ def test_chol_and_tri_inv_match_plain(cuda_device, batch, n):
         assert torch.equal(tcb.tri_inv_block(Lp), M)
 
 
+@pytest.mark.parametrize("name", ["chol_block", "tri_inv_block"])
+def test_smem_layout_matches_library(cuda_device, name):
+    # `fits` decides on the CPU from a copy of the kernels' shared-memory sizes
+    for n in (1, 31, 32, 33, 200, 255, 256, 288, 289, 320, 337, 338):
+        assert tcb._smem_bytes(name, n) == tcb.library_smem_bytes(name, n), n
+
+
 def test_km_se_d1_matches_plain(cuda_device):
     x = torch.linspace(-5.0, 5.0, 4099, device=cuda_device)
     K = tkm.km_se_d1(x)
