@@ -9,8 +9,10 @@ the CUDA toolkit.  In one run it
 1. builds the CUDA kernels from `stheno_tpu_torch/cuda/csrc/` (one nvcc
    per source, in parallel) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes and at ragged ones (kernel 1 also in f64; kernel 2
-   also at n = 1, 33, 255 and its limit 288), with the tolerance stated;
+   flagship's shapes and at ragged ones (kernel 1 also in f64; kernels 2
+   and 3 also at n = 1, 33, 255 and their limit 288, and kernel 3 on an
+   input with garbage above the diagonal, which it must ignore, and on its
+   own by |M·tril(L) − I|), with the tolerance stated;
 3. runs the flagship value-and-gradient step (`-logpdf` of f3 = f1 + f2
    and its gradient in (v1, l1, l2, noise)) at N = 16384 in f32 through the
    blocked path, counts each kernel's launches in that step, and checks the
@@ -29,8 +31,9 @@ the CUDA toolkit.  In one run it
    logpdf, and finite posterior marginals;
 7. times the step, its stages, `predict` and each kernel beside its plain
    version, its bound and its nearest single PyTorch call (kernel 2 also by
-   block size, back to back and alone on the device), and breaks one step
-   and one `predict` down by device kernel with torch.profiler.
+   block size, and kernels 2 and 3 back to back and alone on the device),
+   and breaks one step and one `predict` down by device kernel with
+   torch.profiler.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -281,6 +284,10 @@ def main():
     A_card = spd_blocks(torch, SMS, 256, f32, dev, seed=2)  # one block per SM
     CHOL_TOL = 1e-4  # relative to max|L|: fp32 sweeps in two summation orders
     TRI_TOL = 1e-4   # relative to max|L⁻¹|
+    # kernel 3 also on its own, independent of the plain version (which
+    # follows its tile order): |M·tril(L) − I| relative to max|M|·max|tril(L)|
+    # (fp32 sums of up to 288 terms; about 4e-7 measured on an H100)
+    RESID_TOL = 1e-4
     chol_checks = []
     # kernel 2 pads to whole 32×32 tiles: one padded tile (n = 1), a tile and
     # a row (33), one row short (255) and its shared-memory limit (288)
@@ -310,19 +317,29 @@ def main():
     L_ragged = chol_block_plain(A_ragged)
     L_card = chol_block_plain(A_card)
     tri_checks = []
-    for label, Lb in (("main (4, 256, 256)", L4), ("main (1, 256, 256)", L1),
-                      ("ragged (3, 200, 200)", L_ragged), (f"card ({SMS}, 256, 256)", L_card)):
+    # kernel 3 pads to whole tiles as kernel 2 does; it reads tril(L) only
+    tri_cases = [("main (4, 256, 256)", L4), ("main (1, 256, 256)", L1),
+                 ("ragged (3, 200, 200)", L_ragged), (f"card ({SMS}, 256, 256)", L_card)]
+    tri_cases += [(f"tiles (2, {n}, {n})", chol_block_plain(spd_blocks(torch, 2, n, f32, dev, seed=3 + n)))
+                  for n in (1, 33, 255, 288)]
+    tri_cases.append(("garbage above the diagonal (4, 256, 256)",
+                      L4 + torch.triu(torch.full_like(L4, 1e3), 1)))
+    for label, Lb in tri_cases:
         Mk = tri_inv_block(Lb)
         Mp = tri_inv_block_plain(Lb)
         rel = ((Mk - Mp).abs().max() / Mp.abs().max()).item()
         eye = torch.eye(Lb.shape[-1], dtype=Lb.dtype, device=dev)
-        resid = (Mk @ Lb - eye).abs().max().item()
+        resid = (Mk @ torch.tril(Lb) - eye).abs().max().item()
+        resid_rel = resid / max(Mk.abs().max().item() * torch.tril(Lb).abs().max().item(), 1e-30)
         tri_checks.append({"case": label, "max_rel_err": rel,
                            "max_abs_err": (Mk - Mp).abs().max().item(),
-                           "max_abs_MinvL_minus_I": resid})
+                           "max_abs_MinvL_minus_I": resid, "MinvL_minus_I_rel": resid_rel})
         require(rel <= TRI_TOL, f"tri_inv_block {label}: rel err {rel} > {TRI_TOL}")
+        require(resid_rel <= RESID_TOL,
+                f"tri_inv_block {label}: |M·L − I| {resid} is {resid_rel} of max|M|·max|L| > {RESID_TOL}")
     tri_err_main = max(c["max_abs_err"] for c in tri_checks[:2])
-    emit({"check": "tri_inv_block", "tolerance_rel": TRI_TOL, "cases": tri_checks})
+    emit({"check": "tri_inv_block", "tolerance_rel": TRI_TOL, "MinvL_tolerance_rel": RESID_TOL,
+          "cases": tri_checks})
     # each kernel's arithmetic is in a fixed order, so a repeat that differs
     # in any bit means its threads raced
     L_first, M_first = chol_block(A_card), tri_inv_block(L_card)
@@ -330,7 +347,7 @@ def main():
         require(torch.equal(chol_block(A_card), L_first), "chol_block repeats differ")
         require(torch.equal(tri_inv_block(L_card), M_first), "tri_inv_block repeats differ")
     emit({"check": "repeats bit-identical", "launches": 20, "shape": [SMS, 256, 256]})
-    del A_card, L_card, L_first, M_first, A, L, Lp, Lb, Mk, Mp
+    del A_card, L_card, L_first, M_first, A, L, Lp, Lb, Mk, Mp, tri_cases
     del K_main, fx
     torch.cuda.synchronize()
 
@@ -616,6 +633,7 @@ def main():
         tri[b] = {
             "ms": event_ms(lambda: tri_inv_block(Lb), reps=50),
             "plain_ms": event_ms(lambda: tri_inv_block_plain(Lb), reps=3),
+            "device_ms": device_ms(lambda: tri_inv_block(Lb), "tri_inv_kernel", reps=20),
             "library_ms": event_ms(
                 lambda: torch.linalg.solve_triangular(Lb, eye, upper=False), reps=50),
             "bound": bound(b * blk_bytes, b * 256**3 / 3),
@@ -654,9 +672,16 @@ def main():
          "ms": tri[4]["ms"], "plain_ms": tri[4]["plain_ms"],
          "bound_ms": tri[4]["bound"][0], "bound_by": tri[4]["bound"][1],
          "library_ms": tri[4]["library_ms"], "shape": "(4, 256, 256) f32",
-         "one_cta_bound_ms": per_cta_ms,
-         "batch1": {"ms": tri[1]["ms"], "plain_ms": tri[1]["plain_ms"],
-                    "library_ms": tri[1]["library_ms"], "bound_ms": tri[1]["bound"][0]},
+         "device_ms": tri[4]["device_ms"], "one_cta_bound_ms": per_cta_ms,
+         "batch1": {"ms": tri[1]["ms"], "device_ms": tri[1]["device_ms"],
+                    "plain_ms": tri[1]["plain_ms"], "library_ms": tri[1]["library_ms"],
+                    "bound_ms": tri[1]["bound"][0]},
+         "design": "32x32 tiles in shared memory, M written over L, 16 warps: every diagonal "
+                   "tile inverted at once (a warp each), then right-looking over tile columns with "
+                   "register-blocked tile products (8x4 or, in narrow phases, 4x4 micro-tiles "
+                   "on half tiles); 16 CTA barriers at n=256",
+         "previous_design": "one thread per column of M over its packed triangle, four rows "
+                            "a pass, no barrier",
          "launches_by_shape": step_shapes["tri_inv_block"]},
         {"name": "km_se_d1", "route": "cuda",
          "source": "stheno_tpu_torch/cuda/csrc/kernelmatrix.cu",

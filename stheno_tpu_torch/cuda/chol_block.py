@@ -5,21 +5,24 @@ Replace the Pallas kernels `stheno_tpu/experimental/pallas/chol_block.py`
 (`chol_block`, `tri_inv_block`) with the CUDA kernels in
 `csrc/chol_block.cu`, one CTA per block of the batch.  On an H100 neither is
 bound by the card's bytes or flops at the main path's 256×256 blocks: each
-block runs on one SM, so one SM's fp32 rate and the chain of dependent
-diagonal steps bound them.  Kernel 2 is a tiled right-looking Cholesky with
-32×32 tiles in shared memory (diagonal tile in one warp, panel solve,
-register-blocked trailing update); kernel 3 keeps the packed triangle of the
-inverse in shared memory and gives each thread one column.  See the source
+block runs on one SM, so one SM's fp32 rate (n³/3 flops: 0.011 ms at
+n = 256) and the chain of dependent diagonal steps bound them.  Both keep the
+block's lower 32×32 tiles in shared memory.  Kernel 2 is a tiled
+right-looking Cholesky (diagonal tile in one warp, panel solve,
+register-blocked trailing update); kernel 3 inverts every diagonal tile at
+once, one warp each, then sweeps right-looking over tile columns with
+register-blocked tile products, writing M over L in place.  See the source
 for the design.
 
 On a CPU tensor each wrapper runs its plain PyTorch version, which repeats
 the kernel's order of operations; on a CUDA tensor it launches the kernel or
 raises (for a dtype other than f32, or a block whose working set does not
-fit in shared memory: n ≤ 288 for kernel 2, n ≤ 337 for kernel 3).
+fit in shared memory: n ≤ 288 for both kernels).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -34,7 +37,7 @@ TRI_INV_LAUNCHES = _build.LaunchCounter("tri_inv_block")
 SMEM_LIMIT = 232448
 
 
-#: Tile edge of kernel 2 (`csrc/chol_block.cu:kT`).
+#: Tile edge of kernels 2 and 3 (`csrc/chol_block.cu:kT`).
 TILE = 32
 
 
@@ -42,13 +45,14 @@ def _smem_bytes(name, n):
     """Dynamic shared memory of kernel `name` for an n×n block: a copy of
     `stheno_<name>_smem_bytes` in `csrc/chol_block.cu` (see
     `library_smem_bytes`), so that `fits` answers without a build."""
+    nt = -(-n // TILE)
     if name == "chol_block":
-        nt = -(-n // TILE)
         # the lower tiles, the transposed panel (nt − 1 tiles), the diagonal
         # tile's factor transposed, two broadcast rows and the pivots' rsqrts
         return ((nt * (nt + 1) // 2 + nt) * TILE * TILE + 3 * TILE) * 4
-    # the packed triangle of M, and 4 rows × 32 entries of L per warp (≤ 8 warps)
-    return (n * (n + 1) // 2 + 4 * min(256, -(-n // 32) * 32)) * 4
+    # the lower tiles, the transposed panel (nt − 1 tiles) and one diagonal
+    # tile's inverse transposed
+    return (nt * (nt + 1) // 2 + nt) * TILE * TILE * 4
 
 
 def library_smem_bytes(name, n):
@@ -104,20 +108,56 @@ def chol_block_plain(A):
 
 
 def tri_inv_block_plain(L):
-    """Row sweep M[i, :] = (e_i − L[i, :i]·M[:i, :]) / L[i, i] for the
-    inverse of lower-triangular L, batched over leading dims."""
+    """Inverse of lower-triangular tril(L), batched over leading dims, in the
+    kernel's order: L is padded to whole TILE×TILE tiles with the identity;
+    every diagonal tile is inverted by a row sweep (M[i, :] = (e_i −
+    L[i, :i]·M[:i, :]) / L[i, i]); then for each tile column k, every tile
+    below tile row k takes S_ij −= L_ik·M_kj (j ≤ k), and tile row k + 1
+    of M is M_{k+1,k+1}·S_{k+1,j}.  A zero pivot gives inf or NaN."""
     n = L.shape[-1]
-    M = torch.zeros_like(L)
-    for i in range(n):
-        acc = (L[..., i, None, :i] @ M[..., :i, : i + 1])[..., 0, :]
+    nt = -(-n // TILE)
+    npad = nt * TILE
+    Lp = torch.zeros(*L.shape[:-2], npad, npad, dtype=L.dtype, device=L.device)
+    Lp[..., :n, :n] = torch.tril(L)
+    Lp.diagonal(dim1=-2, dim2=-1)[..., n:] = 1.0
+    D = torch.stack([Lp[..., k * TILE:(k + 1) * TILE, k * TILE:(k + 1) * TILE]
+                     for k in range(nt)], dim=-3)
+    Md = torch.zeros_like(D)
+    for i in range(TILE):
+        acc = (D[..., i, None, :i] @ Md[..., :i, : i + 1])[..., 0, :]
         e = torch.zeros_like(acc)
         e[..., i] = 1.0
-        M[..., i, : i + 1] = (e - acc) / L[..., i, i, None]
-    return M
+        Md[..., i, : i + 1] = (e - acc) / D[..., i, i, None]
+    M = torch.zeros_like(Lp)
+    for k in range(nt):
+        M[..., k * TILE:(k + 1) * TILE, k * TILE:(k + 1) * TILE] = Md[..., k, :, :]
+    S = torch.zeros_like(Lp)
+    for k in range(nt - 1):
+        lo, hi, nxt = k * TILE, (k + 1) * TILE, (k + 2) * TILE
+        S[..., hi:, :hi] -= Lp[..., hi:, lo:hi] @ M[..., lo:hi, :hi]
+        M[..., hi:nxt, :hi] = M[..., hi:nxt, hi:nxt] @ S[..., hi:nxt, :hi]
+    return M[..., :n, :n]
+
+
+#: The C launch functions, bound once per loaded library.
+_entries = {}
+
+
+def _entry(name):
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.library("chol_block"), f"stheno_{name}_f32")
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
 
 
 def _launch(name: str, counter, A):
-    """Launch `stheno_<name>_f32` on contiguous (batch, n, n) f32 `A`."""
+    """Launch `stheno_<name>_f32` on contiguous (batch, n, n) f32 `A`.  The
+    C side raises the kernel's shared-memory limit on a device only when a
+    block needs more than it set there before; the device guard is entered
+    only when `A` is not on the current device."""
     if A.dim() != 3 or A.shape[1] != A.shape[2] or not A.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous (batch, n, n) tensor, got {tuple(A.shape)}")
     if A.dtype != torch.float32:
@@ -127,14 +167,12 @@ def _launch(name: str, counter, A):
         raise ValueError(f"{name}: a {n}×{n} block needs {_smem_bytes(name, n)} bytes of "
                          f"shared memory, more than the {SMEM_LIMIT} one CTA may use")
     out = torch.empty_like(A)
-    lib = _build.library("chol_block")
-    fn = getattr(lib, f"stheno_{name}_f32")
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(A.data_ptr(), out.data_ptr(), batch, n, stream)
-    _build.check(lib, code, f"{name} launch")
+    fn = _entry(name)
+    here = A.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(A.device):
+        code = fn(A.data_ptr(), out.data_ptr(), batch, n, torch.cuda.current_stream().cuda_stream)
+    if code:
+        _build.check(_build.library("chol_block"), code, f"{name} launch")
     counter.add((batch, n))
     return out
 

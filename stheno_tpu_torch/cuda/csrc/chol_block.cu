@@ -40,8 +40,30 @@
 // as TF32, which the factorisation must not use.  Every sum runs in a fixed
 // order with no atomics, so repeats are bit-identical.
 //
-// The triangular inverse keeps M's packed triangle in shared memory and
-// gives each thread one column; it needs no barrier at all.
+// Triangular inverse M = L^{-1} (tri_inv_kernel), bound the same way: n^3/3
+// FMAs' worth of flops, 11 us at one SM's fp32 rate for n = 256.  Tiled like
+// the Cholesky, in the same tile store and loader, with M written over L in
+// place:
+//   1. every diagonal tile is inverted at once, one warp each, in registers
+//      (lane c holds column c of M_ii, rows of L_ii read by broadcast; no
+//      CTA barrier): M_ii depends on L_ii alone;
+//   2. right-looking over tile columns k: once tile row k of M is final,
+//      every tile below it takes S_ij -= L_ik M_kj (i > k, j <= k; the
+//      j = k term starts S_ik over L_ik's slot, which the step no longer
+//      reads), one warp per tile in 8 x 4 register micro-tiles with L's tile
+//      column k transposed into a panel buffer; then tile row k + 1 of M is
+//      M_{k+1,j} = M_{k+1,k+1} S_{k+1,j}, in place, from a transposed copy
+//      of M_{k+1,k+1}, while the other warps transpose column k + 1 of L.
+// A 256-block takes 112 tile products of 32^3 FMAs and 16 CTA barriers; the
+// step's products are independent tiles, so the 16 warps share them without
+// reducing across warps, and a phase whose products number at most half
+// the warps gives each warp half a tile (4 x 4 micro-tiles), which halves
+// its chain.  The zeros above the diagonal are written while L loads.
+// Right-looking rather than a tile-row (left-looking) sweep: its batches of
+// independent tiles are wider, and the panel is again one operand all of a
+// step's tiles share.  The tiles, the panel and the transposed diagonal
+// inverse fit one CTA up to n = 288.
+// Pivots are divided by in IEEE fp32, so a zero pivot gives inf or NaN.
 //
 // The Pallas sweeps extract rows and columns with mask reductions only
 // because TPU lanes cannot be indexed dynamically; here each thread indexes
@@ -49,16 +71,17 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
-constexpr int kT = 32;              // chol_block_kernel: tile edge
+constexpr int kT = 32;              // tile edge of both kernels
 constexpr int kTile = kT * kT;      // floats of a stored tile
 constexpr int kQuads = kT / 4;      // quads of rows in a tile
 constexpr int kCholThreads = 256;   // chol_block_kernel
-constexpr int kTriThreads = 256;    // tri_inv_kernel: one thread per column, round robin
-constexpr int kTriRows = 4;         // rows of M per pass of tri_inv_kernel
+constexpr int kTriThreads = 512;    // tri_inv_kernel
 
 __host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
@@ -69,6 +92,13 @@ __host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 __host__ __device__ __forceinline__ int chol_smem_floats(int n) {
   const int nt = (n + kT - 1) / kT;
   return tri(nt) * kTile + (nt - 1) * kT * kT + kT * kT + 2 * kT + kT;
+}
+
+// Shared floats of tri_inv_kernel: the lower tiles, the transposed panel
+// (nt - 1 tiles) and the next diagonal tile's inverse transposed.
+__host__ __device__ __forceinline__ int tri_inv_smem_floats(int n) {
+  const int nt = (n + kT - 1) / kT;
+  return (tri(nt) + nt) * kTile;
 }
 
 // Offset of quad q (entries 4q .. 4q+3) of row r in a stored tile.  A tile is
@@ -341,91 +371,184 @@ chol_block_kernel(const float* __restrict__ A, float* __restrict__ L, int n) {
   }
 }
 
-// Column sweep for M = L^{-1}.  Column c of M solves L m = e_c on its own:
-//   M[i, c] = (delta_ic - sum_{c <= k < i} L[i, k] M[k, c]) / L[i, i],  i >= c,
-// so one thread owns each column and no barrier separates the rows.  Warp w
-// owns columns [32w, 32w + 32), and further groups of 32 round robin.  M's
-// lower triangle is packed by rows in S; a thread touches only its own
-// column, so a warp reads 32 consecutive words of one row (no bank
-// conflicts) and never waits on another warp.
-//
-// The first warp's columns are the longest chain, and one warp alone hides
-// little latency, so each pass takes kTriRows rows: one read of M[k, c]
-// feeds all of them, the sums over k < i run together, and the few terms
-// with i <= k < i + kTriRows are added once those rows are known.  The
-// rows' chunks of L are staged 32 entries at a time in the warp's own
-// buffer (one coalesced load per row, the next chunk already in flight)
-// and read back by broadcast.
+// Invert the diagonal tile d in place, one warp, lane c holding column c of
+// M = D^{-1} in registers:
+//   M[i, c] = (delta_ic - sum_{c <= k < i} D[i, k] M[k, c]) / D[i, i],  i >= c,
+// with M[k, c] = 0 for k < c, so the sum runs over k < i.  Row i of D is read
+// by float4 broadcasts, only its entries k < i and the pivot (the loader
+// copies a quad that straddles the diagonal whole).  Four partial sums, one
+// per entry of a quad, in a fixed order.  Writes M back, zeros above the
+// diagonal; lanes write 32 entries of one row, each bank once.
+__device__ __forceinline__ void invert_diag_tile(float* d, int lane) {
+  float m[kT];
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; 4 * q < i; ++q) {
+      float w[4];
+      unpack(ld4(d + quad_at(i, q)), w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e < i) part[e] = fmaf(w[e], m[4 * q + e], part[e]);
+    }
+    const float s = (part[0] + part[1]) + (part[2] + part[3]);
+    const float piv = d[quad_at(i, i / 4) + i % 4];
+    m[i] = lane <= i ? ((lane == i ? 1.0f : 0.0f) - s) / piv : 0.0f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kT; ++i) d[quad_at(i, lane / 4) + lane % 4] = m[i];
+}
+
+// at[p * kT + r] = A[r, p] for a stored tile A, by one warp: lane r reads row
+// r (float4s, each bank once) and writes column r (consecutive words).
+__device__ __forceinline__ void transpose_tile(float* at, const float* A, int lane) {
+  float a[kT];
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) unpack(ld4(A + quad_at(lane, q)), a + 4 * q);
+#pragma unroll
+  for (int p = 0; p < kT; ++p) at[p * kT + lane] = a[p];
+}
+
+// acc = rows h .. h + 4R - 1 of A B for one 32 x 32 tile product by one warp,
+// A from a transposed tile (at[p * kT + r] = A[r, p]) and B from a stored
+// tile: lane (y, x) = (lane / 8, lane % 8) owns rows h + Ry .. h + Ry + R - 1
+// and quad x of columns, and reads R / 4 + 1 float4 per 4R FMAs (broadcasts
+// of A's column, one quad of B's row).  R = 8 is the whole tile, R = 4 half.
+template <int R>
+__device__ __forceinline__ void tile_product(float (&acc)[R][4], const float* at, const float* B,
+                                             int lane, int h) {
+  const int x = lane % 8;
+  at += h + R * (lane / 8);
+#pragma unroll
+  for (int y = 0; y < R; ++y)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[y][c] = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kT; ++p) {
+    float av[R], bv[4];
+#pragma unroll
+    for (int v = 0; v < R / 4; ++v) unpack(ld4(at + p * kT + 4 * v), av + 4 * v);
+    unpack(ld4(B + quad_at(p, x)), bv);
+#pragma unroll
+    for (int y = 0; y < R; ++y)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[y][c] = fmaf(av[y], bv[c], acc[y][c]);
+  }
+}
+
+// How a lane's micro-tile of a product goes into the stored tile C.
+enum class Put { kSet, kSetNeg, kSub };
+
+template <Put kMode, int R>
+__device__ __forceinline__ void put_tile(float* C, const float (&acc)[R][4], int lane, int h) {
+  const int r0 = h + R * (lane / 8), x = lane % 8;
+#pragma unroll
+  for (int y = 0; y < R; ++y) {
+    float* cp = C + quad_at(r0 + y, x);
+    float w[4];
+    if (kMode == Put::kSub) unpack(ld4(cp), w);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      w[c] = kMode == Put::kSet ? acc[y][c] : (kMode == Put::kSetNeg ? -acc[y][c] : w[c] - acc[y][c]);
+    st4(cp, w);
+  }
+}
+
+// C = A B (kSet, C may be B), C = -A B or C -= A B for one tile, by one warp
+// (half < 0) or rows 16 half .. 16 half + 15 by one of two warps.  In place,
+// the tile's one warp, or both of its warps by named barrier 1 + pair, read
+// all of B before any writes.
+template <Put kMode>
+__device__ __forceinline__ void product_job(float* C, const float* at, const float* B, int lane,
+                                            int half, int pair) {
+  if (half < 0) {
+    float acc[8][4];
+    tile_product<8>(acc, at, B, lane, 0);
+    if (kMode == Put::kSet) __syncwarp();
+    put_tile<kMode, 8>(C, acc, lane, 0);
+  } else {
+    float acc[4][4];
+    tile_product<4>(acc, at, B, lane, 16 * half);
+    if (kMode == Put::kSet) asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+    put_tile<kMode, 4>(C, acc, lane, 16 * half);
+  }
+}
+
+// M = L^{-1} of one block per CTA, tiled and right-looking (see the note at
+// the head of the file).  Tile (i, j) of the store holds L_ij, then S_ij =
+// -sum_{k < step} L_ik M_kj, then M_ij.  A phase whose products number at
+// most half the warps splits each into two halves, so that its chain is
+// shorter; it then runs in one round, so job t is warp t's.
 __global__ void __launch_bounds__(kTriThreads)
 tri_inv_kernel(const float* __restrict__ Lin, float* __restrict__ M, int n) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int R = kTriRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float* buf = smem + warp * 32 * R;  // this warp's chunks of L
-  float* S = smem + nwarps * 32 * R;  // packed lower triangle of M, tri(n) entries
+  const int nt = (n + kT - 1) / kT;
+  float* tiles = smem;                      // tri(nt) tiles; tile (i, j) at tri(i) + j
+  float* panel = tiles + tri(nt) * kTile;   // tile i - 1: L_ik transposed, for the step's k
+  float* dt = panel + (nt - 1) * kTile;     // M_{k+1,k+1} transposed
   const float* Lb = Lin + static_cast<size_t>(blockIdx.x) * n * n;
   float* Mb = M + static_cast<size_t>(blockIdx.x) * n * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(Lin) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(M) % 16 == 0;
+  auto tile = [&](int i, int j) { return tiles + (tri(i) + j) * kTile; };
 
-  for (int c0 = warp * 32; c0 < n; c0 += nwarps * 32) {
-    const int c = c0 + lane;  // may pass n on a ragged edge: then it writes nothing
-    for (int i = c0; i < n; i += R) {
-      const float* lr[R];  // rows i .. i + R - 1 of L (the last row repeats past n)
-      float acc[R], next[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        lr[r] = Lb + static_cast<size_t>(i + r < n ? i + r : n - 1) * n;
-        acc[r] = 0.0f;
-        next[r] = c0 + lane < i ? lr[r][c0 + lane] : 0.0f;
-      }
-      for (int kb = c0; kb < i; kb += 32) {
-        __syncwarp();
-#pragma unroll
-        for (int r = 0; r < R; ++r) buf[r * 32 + lane] = next[r];
-        __syncwarp();
-        const int kn = kb + 32 + lane;
-#pragma unroll
-        for (int r = 0; r < R; ++r) next[r] = kn < i ? lr[r][kn] : 0.0f;
-        // every k of the chunk lies in [c, i) unless it holds the diagonal
-        // or the end of the rows
-        const bool full = kb > c0 && kb + 32 <= i;
-        int off = tri(kb) + c;  // entry (kb, c); row k + 1 starts k + 1 later
-#pragma unroll
-        for (int t0 = 0; t0 < 32; t0 += 8) {
-          float m[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int k = kb + t0 + u;
-            m[u] = (full || (k >= c && k < i)) ? S[off] : 0.0f;
-            off += k + 1;
-          }
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-#pragma unroll
-            for (int r = 0; r < R; ++r) acc[r] += buf[r * 32 + t0 + u] * m[u];
-        }
-      }
-      float mr[R];  // M[i + r, c], zero above the diagonal
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = i + r;
-        mr[r] = 0.0f;
-        if (row < n && row >= c) {
-          float s = acc[r];
-#pragma unroll
-          for (int q = 0; q < r; ++q) s += lr[r][i + q] * mr[q];
-          mr[r] = ((row == c ? 1.0f : 0.0f) - s) / lr[r][row];
-          S[tri(row) + c] = mr[r];
-        }
-      }
-    }
+  for (int g = warp; g < nt * kQuads; g += nwarps)
+    for (int j = 0; j <= g / kQuads; ++j) load_quad(tiles, Lb, n, vec, g / kQuads, j, g % kQuads, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // the tiles above the diagonal are zeros in M: written while L arrives
+  for (int g = warp; g < nt * kQuads; g += nwarps)
+    for (int j = g / kQuads + 1; j < nt; ++j) store_quad(tiles, Mb, n, vec, g / kQuads, j, g % kQuads, lane);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // every diagonal tile inverted at once, and tile column 0 of L transposed
+  for (int t = warp; t < 2 * nt - 1; t += nwarps) {
+    if (t < nt) invert_diag_tile(tile(t, t), lane);
+    else transpose_tile(panel + (t - nt) * kTile, tile(t - nt + 1, 0), lane);
   }
   __syncthreads();
 
-  for (int i = warp; i < n; i += nwarps) {
-    float* mrow = Mb + static_cast<size_t>(i) * n;
-    for (int j = lane; j < n; j += 32) mrow[j] = j <= i ? S[tri(i) + j] : 0.0f;
+  for (int k = 0; k + 1 < nt; ++k) {
+    // S_ij -= L_ik M_kj for i > k, j <= k, one tile (or half) a job; the
+    // last job transposes M_{k+1,k+1}, which is final, for the next phase
+    const int products = (nt - 1 - k) * (k + 1);
+    int split = 2 * products + 1 <= nwarps ? 2 : 1;
+    int jobs = split * products;
+    for (int t = warp; t <= jobs; t += nwarps) {
+      if (t == jobs) {
+        transpose_tile(dt, tile(k + 1, k + 1), lane);
+        continue;
+      }
+      const int u = t / split, half = split == 2 ? t % 2 : -1;
+      const int i = k + 1 + u / (k + 1), j = u % (k + 1);
+      if (j == k) product_job<Put::kSetNeg>(tile(i, j), panel + (i - 1) * kTile, tile(k, j), lane, half, 0);
+      else product_job<Put::kSub>(tile(i, j), panel + (i - 1) * kTile, tile(k, j), lane, half, 0);
+    }
+    __syncthreads();
+    // tile row k + 1 of M: M_{k+1,j} = M_{k+1,k+1} S_{k+1,j} in place, j <=
+    // k; the other warps transpose tile column k + 1 of L for the next step
+    split = 2 * (k + 1) + nt - 2 - k <= nwarps ? 2 : 1;
+    jobs = split * (k + 1);
+    for (int t = warp; t < jobs + nt - 2 - k; t += nwarps) {
+      if (t < jobs) {
+        const int j = t / split;
+        product_job<Put::kSet>(tile(k + 1, j), dt, tile(k + 1, j), lane, split == 2 ? t % 2 : -1, j);
+      } else {
+        const int i = k + 2 + t - jobs;
+        transpose_tile(panel + (i - 1) * kTile, tile(i, k + 1), lane);
+      }
+    }
+    __syncthreads();
   }
+
+  // the lower tiles (writing each tile row out as soon as it is final, in
+  // the phases, measured slower on an H100)
+  for (int g = warp; g < nt * kQuads; g += nwarps)
+    for (int i = g / kQuads; i < nt; ++i) store_quad(tiles, Mb, n, vec, i, g / kQuads, g % kQuads, lane);
 }
 
 }  // namespace
@@ -438,34 +561,77 @@ extern "C" int stheno_chol_block_smem_bytes(int n) {
 }
 
 extern "C" int stheno_tri_inv_block_smem_bytes(int n) {
-  const int warps = (n + 31) / 32 < kTriThreads / 32 ? (n + 31) / 32 : kTriThreads / 32;
-  return (warps * 32 * kTriRows + tri(n)) * static_cast<int>(sizeof(float));
+  return tri_inv_smem_floats(n) * static_cast<int>(sizeof(float));
 }
 
-// A, L, M: (batch, n, n) f32, row-major and contiguous.  The caller checks
-// that the kernel's shared memory fits.  Each returns the CUDA error code of
-// the launch (0 on success).
+namespace {
+
+// A kernel's dynamic shared-memory limit as set so far on each device.  A
+// launch raises it only when it needs more than that, so a run sets it once
+// per block size it grows to, not on every launch, and a launch never asks
+// for more than its own block needs.  Raises are serialised, so the limit
+// set on a device is always the largest recorded for it; a failed launch
+// forgets the record (after a context reset the limit is gone), so the next
+// launch sets it again.
+struct SmemLimit {
+  static constexpr int kDevices = 64;
+  std::atomic<int> bytes[kDevices] = {};
+  std::mutex raising;
+};
+
+SmemLimit chol_smem_limit, tri_inv_smem_limit;
+
+template <typename Kernel>
+cudaError_t raise_smem_limit(SmemLimit& limit, Kernel kernel, int dev, int bytes) {
+  if (dev < SmemLimit::kDevices && limit.bytes[dev].load(std::memory_order_acquire) >= bytes)
+    return cudaSuccess;
+  std::lock_guard<std::mutex> lock(limit.raising);
+  if (dev < SmemLimit::kDevices && limit.bytes[dev].load(std::memory_order_relaxed) >= bytes)
+    return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < SmemLimit::kDevices)
+    limit.bytes[dev].store(bytes, std::memory_order_release);
+  return err;
+}
+
+void forget_smem_limit(SmemLimit& limit, int dev) {
+  if (dev >= SmemLimit::kDevices) return;
+  std::lock_guard<std::mutex> lock(limit.raising);
+  limit.bytes[dev].store(0, std::memory_order_release);
+}
+
+// Launch kernel(in, out, n) with one CTA per block of the batch, on the
+// current device.
+template <typename Kernel>
+int launch_blocks(SmemLimit& limit, Kernel kernel, int threads, int smem, const float* in,
+                  float* out, int batch, int n, cudaStream_t stream) {
+  if (batch <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = raise_smem_limit(limit, kernel, dev, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch, threads, smem, stream>>>(in, out, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) forget_smem_limit(limit, dev);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// A, L, M: (batch, n, n) f32, row-major and contiguous, on the current
+// device.  The caller checks that the block fits in shared memory (n <= 288).
+// Each returns the CUDA error code of the launch (0 on success).
 extern "C" int stheno_chol_block_f32(const float* A, float* L, int batch, int n,
                                      cudaStream_t stream) {
-  if (batch <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const int smem = stheno_chol_block_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(chol_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chol_block_kernel<<<batch, kCholThreads, smem, stream>>>(A, L, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_blocks(chol_smem_limit, chol_block_kernel, kCholThreads,
+                       stheno_chol_block_smem_bytes(n), A, L, batch, n, stream);
 }
 
 extern "C" int stheno_tri_inv_block_f32(const float* L, float* M, int batch, int n,
                                         cudaStream_t stream) {
-  if (batch <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const int warps = (n + 31) / 32 < kTriThreads / 32 ? (n + 31) / 32 : kTriThreads / 32;
-  const int smem = stheno_tri_inv_block_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(tri_inv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tri_inv_kernel<<<batch, warps * 32, smem, stream>>>(L, M, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_blocks(tri_inv_smem_limit, tri_inv_kernel, kTriThreads,
+                       stheno_tri_inv_block_smem_bytes(n), L, M, batch, n, stream);
 }
 
 extern "C" const char* stheno_error_string(int code) {

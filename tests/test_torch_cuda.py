@@ -70,6 +70,9 @@ def test_chol_and_tri_inv_match_plain(cuda_device, batch, n):
     M = tcb.tri_inv_block(Lp)
     Mp = tcb.tri_inv_block_plain(Lp)
     torch.testing.assert_close(M, Mp, rtol=0, atol=1e-4 * Mp.abs().max().item())
+    # kernel 3 reads tril(L) only, too
+    G = Lp + torch.triu(torch.full_like(Lp, 1e3), 1)
+    torch.testing.assert_close(tcb.tri_inv_block(G), Mp, rtol=0, atol=1e-4 * Mp.abs().max().item())
     # each kernel's arithmetic is in a fixed order, so a repeat that differs
     # in any bit means threads raced
     for _ in range(10):
@@ -112,6 +115,8 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
         tcb.chol_block(_spd_stack(1, 289, 11, torch.float32, cuda_device))
     with pytest.raises(ValueError):
         tcb.tri_inv_block(L[None, :, :10])
+    with pytest.raises(ValueError):  # the first n past kernel 3's limit, 288
+        tcb.tri_inv_block(torch.eye(289, device=cuda_device))
     one = torch.tensor(1.0, device=cuda_device)
     strided = torch.zeros(50, 2, device=cuda_device)[:, :1]  # not contiguous
     with pytest.raises(ValueError):

@@ -146,13 +146,40 @@ def test_plain_chol_block_matches_pallas_interpret(n, dtype):
         np.testing.assert_allclose(L, L_pallas, rtol=1e-10, atol=1e-14 * np.abs(L_ref).max())
 
 
-@pytest.mark.parametrize("n", [128, 256])
-def test_plain_tri_inv_block_matches_pallas_interpret(n):
-    L_ref = np.linalg.cholesky(_psd(np.random.default_rng(5), n, np.float32))
-    M = tcb.tri_inv_block(torch.as_tensor(L_ref)).numpy()
-    M_pallas = np.asarray(tri_inv_block_auto(jnp.asarray(L_ref)))
-    np.testing.assert_allclose(M @ L_ref, np.eye(n), atol=5e-5)
-    np.testing.assert_allclose(M, M_pallas, atol=5e-5 * np.abs(M_pallas).max())
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 128, 200, 256, 288])
+def test_plain_tri_inv_block_matches_pallas_interpret(n, dtype):
+    """The tiled plain version (32×32 tiles, identity padding, diagonal
+    tiles first, then the right-looking tile sweep) at ragged n, n < 32,
+    whole tiles and the kernels' limit 288, against the Pallas kernel in
+    interpret mode and LAPACK's inverse."""
+    L_ref = np.linalg.cholesky(_psd(np.random.default_rng(5), n)).astype(dtype)
+    inv_ref = np.linalg.inv(L_ref.astype(np.float64))
+    # only tril(L) is read: finite garbage in the strict upper triangle is
+    # ignored, by the Pallas kernel too
+    G = L_ref + np.triu(np.full_like(L_ref, 1e3), 1)
+    M = tcb.tri_inv_block(torch.as_tensor(G)).numpy()
+    M_pallas = np.asarray(tri_inv_block_auto(jnp.asarray(G)))
+    assert M.dtype == dtype and np.all(np.triu(M, 1) == 0)
+    scale = np.abs(inv_ref).max()
+    if dtype == np.float32:
+        np.testing.assert_allclose(M @ L_ref, np.eye(n), atol=5e-5)
+        np.testing.assert_allclose(M, M_pallas, atol=5e-5 * scale)
+        np.testing.assert_allclose(M, inv_ref, atol=5e-5 * scale)
+    else:
+        np.testing.assert_allclose(M, M_pallas, rtol=1e-10, atol=1e-14 * scale)
+        np.testing.assert_allclose(M, inv_ref, rtol=1e-10, atol=1e-14 * scale)
+
+
+@pytest.mark.parametrize("n,bad", [(4, 2), (40, 35), (70, 33)])
+def test_tri_inv_block_zero_pivot_gives_inf_or_nan(n, bad):
+    """A zero pivot gives inf (and NaN below it) and never raises, in the
+    first diagonal tile or a later one; the rows before it are untouched."""
+    L = torch.eye(n, dtype=torch.float64)
+    L[bad, bad] = 0.0
+    M = tcb.tri_inv_block(L)
+    assert torch.isinf(M[bad, bad]) and not torch.isfinite(M[bad:, bad]).any()
+    assert torch.all(M[:bad, :bad] == torch.eye(bad, dtype=torch.float64))
 
 
 @pytest.mark.parametrize("n,bad", [(4, 2), (40, 35), (70, 33)])
@@ -189,3 +216,4 @@ def test_plain_versions_repeat_kernel_arithmetic_on_ragged_batches():
         np.testing.assert_allclose(Li, np.asarray(chol_block_auto(jnp.asarray(Ai))), rtol=1e-10, atol=1e-12)
     M = tcb.tri_inv_block(torch.as_tensor(L)).numpy()
     np.testing.assert_allclose(M, np.linalg.inv(L), rtol=1e-9, atol=1e-13)
+

@@ -69,15 +69,16 @@ def test_ladder_bases_beyond_the_kernels_take_the_library(capsys):
 
 def test_the_base_switch_follows_the_kernels_shared_memory(monkeypatch):
     """The probe asks kernels 2 and 3 which blocks they take: n ≤ 288 for
-    kernel 2 (its 32×32 tiles and the transposed panel beside them) and
-    n ≤ 337 for kernel 3 in 227 KiB, so 288 for both; with more shared
-    memory, base 512 would stay on the kernels."""
+    each in 227 KiB (their 32×32 tiles and the transposed panel beside
+    them); with more shared memory, base 512 would stay on the kernels."""
     from stheno_tpu_torch.cuda import chol_block as cb
 
     assert cb._fits("chol_block", 288) and not cb._fits("chol_block", 289)
     # 36 lower tiles, 7 panel tiles, the transposed diagonal factor, 96 floats
     assert cb._smem_bytes("chol_block", 256) == ((36 + 7 + 1) * 32 * 32 + 96) * 4 == 180608
-    assert cb._fits("tri_inv_block", 337) and not cb._fits("tri_inv_block", 338)
+    assert cb._fits("tri_inv_block", 288) and not cb._fits("tri_inv_block", 289)
+    # 36 lower tiles, 7 panel tiles, the transposed diagonal inverse
+    assert cb._smem_bytes("tri_inv_block", 256) == (36 + 7 + 1) * 32 * 32 * 4 == 180224
     assert cb.fits(288) and not cb.fits(289)
     assert perf_probe.base_scope(256) == {} and perf_probe.base_scope(512) == perf_probe.LIBRARY_BASE
     monkeypatch.setattr(cb, "SMEM_LIMIT", 4 * 2**20)
