@@ -6,10 +6,22 @@ helps a reader find the counterpart.  It imports neither JAX nor anything of
 here (`stheno_tpu_torch.cuda`), built with nvcc for `sm_90a` at first use;
 on a CPU tensor each runs its plain PyTorch version.
 
-Ported so far: the exact-GP path of a GPPP — kernels SE and Matern12/32/52
-with their algebra, atomic/sum/scaled processes, `GPPPInput` routing,
-`logpdf` with its gradient, `posterior` and `marginals` — on the blocked
-Cholesky with its closed-form reverse rule.
+Ported so far: the exact-GP path of a GPPP on the blocked Cholesky with
+its closed-form reverse rule —
+
+- the kernel zoo with its algebra (SE and Matern12/32/52 on kernel 1, the
+  rest in plain PyTorch, as the reference computes them on XLA);
+- the process graph: atomic, sum and scaled processes, constant and
+  function shifts and scalings, input warps (`stretch`, `select`,
+  `periodic`, `shift`, `compose`), `additive_gp`, wrapped leaves
+  (`atomic`) and `cross`;
+- GPPP queries at one process (`GPPPInput`), at several jointly
+  (`BlockData`, `[(name, x), ...]`), and across them;
+- `logpdf` with its gradient, `rand`, `posterior` and `marginals`;
+- constrained parameters (`params`) and the fitting loops
+  (`inference.fit`, `inference.fit_lbfgs`);
+- the five BASELINE model families (`models`), the conformance checks
+  (`utils.testing`), and the state-space tier (`markov`).
 """
 
 from stheno_tpu_torch import config
@@ -26,6 +38,7 @@ from stheno_tpu_torch.finite_gp import (
     mean_and_cov,
     mean_and_var,
     posterior,
+    rand,
     var,
 )
 from stheno_tpu_torch.gppp import GPPP, gppp
@@ -33,11 +46,32 @@ from stheno_tpu_torch.graph import (
     GP,
     GPC,
     AbstractProcess,
+    AddConstGP,
+    AddFnGP,
     AtomicGP,
+    CompositeGP,
+    CrossGP,
+    FnWarp,
+    ParamFn,
+    Periodic,
+    ScaledFnGP,
     ScaledGP,
+    Select,
+    Shift,
+    StaticFn,
+    Stretch,
     SumGP,
+    WrappedGP,
+    additive_gp,
+    atomic,
+    compose,
+    cross,
     cross_cov,
     cross_var,
+    periodic,
+    select,
+    shift,
+    stretch,
 )
 from stheno_tpu_torch.inputs import (
     BlockData,
@@ -48,35 +82,21 @@ from stheno_tpu_torch.inputs import (
     split,
     vcat,
 )
-from stheno_tpu_torch.kernels import (
-    ExponentialKernel,
-    GaussianKernel,
-    Kernel,
-    Matern12Kernel,
-    Matern32Kernel,
-    Matern52Kernel,
-    ProductKernel,
-    RBFKernel,
-    ScaledKernel,
-    SEKernel,
-    SqExponentialKernel,
-    SumKernel,
-    TransformedKernel,
-    kernelmatrix,
-    kernelmatrix_diag,
-    with_lengthscale,
-)
+from stheno_tpu_torch.kernels import *  # noqa: F401,F403
+from stheno_tpu_torch.kernels import __all__ as _kernels_all
 from stheno_tpu_torch.means import ConstMean, FunctionMean, ZeroMean
 
-__all__ = [
+#: The reference's full name of a GPPP.
+GaussianProcessProbabilisticProgramme = GPPP
+
+__all__ = list(_kernels_all) + [
     "config", "DiagNoise", "FiniteGP", "FullNoise", "Marginals", "PosteriorGP",
     "cov", "logpdf", "marginals", "mean", "mean_and_cov", "mean_and_var",
-    "posterior", "var", "GPPP", "gppp", "GP", "GPC", "AbstractProcess",
-    "AtomicGP", "ScaledGP", "SumGP", "cross_cov", "cross_var", "BlockData",
-    "ColVecs", "GPPPInput", "RowVecs", "input_length", "split", "vcat",
-    "ExponentialKernel", "GaussianKernel", "Kernel", "Matern12Kernel",
-    "Matern32Kernel", "Matern52Kernel", "ProductKernel", "RBFKernel",
-    "ScaledKernel", "SEKernel", "SqExponentialKernel", "SumKernel",
-    "TransformedKernel", "kernelmatrix", "kernelmatrix_diag",
-    "with_lengthscale", "ConstMean", "FunctionMean", "ZeroMean",
+    "posterior", "rand", "var", "GPPP", "gppp", "GaussianProcessProbabilisticProgramme",
+    "GP", "GPC", "AbstractProcess", "AddConstGP", "AddFnGP", "AtomicGP", "CompositeGP",
+    "CrossGP", "FnWarp", "ParamFn", "Periodic", "ScaledFnGP", "ScaledGP", "Select",
+    "Shift", "StaticFn", "Stretch", "SumGP", "WrappedGP", "additive_gp", "atomic",
+    "compose", "cross", "cross_cov", "cross_var", "periodic", "select", "shift",
+    "stretch", "BlockData", "ColVecs", "GPPPInput", "RowVecs", "input_length", "split",
+    "vcat", "ConstMean", "FunctionMean", "ZeroMean",
 ]

@@ -35,3 +35,43 @@ def theta_from_numpy(tree, dtype=None, device="cuda", requires_grad=True):
             t = t.to(dtype)
         t.requires_grad_(requires_grad)
     return t
+
+
+def _closure_values(fn):
+    """The values a closure closes over, by name."""
+    cells = fn.__closure__ or ()
+    return dict(zip(fn.__code__.co_freevars, (c.cell_contents for c in cells)))
+
+
+def spec_from_numpy(spec, dtype=None, device="cuda"):
+    """Carry a parameter spec of the JAX package (`stheno_tpu.params`) into
+    the port's, on `device`: each `Param` keeps its raw value, its bijector
+    (by the name of the constructor that made it: `positive`,
+    `softplus_positive` or `bounded`) and its bounds; each `Fixed` keeps its
+    value; a plain leaf is carried as a tensor.  Every number is read with
+    `np.asarray`, so nothing of JAX is imported here.  Floating values are
+    cast to `dtype` when given."""
+    from stheno_tpu_torch import params as P
+
+    dev = resolve_device(device)
+
+    def tensor(v):
+        t = torch.tensor(np.asarray(v), device=dev)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    def carry(s):
+        if isinstance(s, dict):
+            return {k: carry(v) for k, v in s.items()}
+        if isinstance(s, (list, tuple)):
+            return type(s)(carry(v) for v in s)
+        if hasattr(s, "raw") and hasattr(s, "transform"):  # a Param
+            kind = s.transform.__qualname__.split(".")[0]
+            if kind not in P.TRANSFORMS:
+                raise ValueError(f"spec_from_numpy: unknown bijector {s.transform.__qualname__!r}")
+            bounds = {k: float(np.asarray(v)) for k, v in _closure_values(s.transform).items()}
+            return P.Param(tensor(s.raw), *P.TRANSFORMS[kind](**bounds))
+        if type(s).__name__ == "Fixed":
+            return P.Fixed(tensor(s.value))
+        return tensor(s)
+
+    return carry(spec)

@@ -1,4 +1,7 @@
-"""The flagship programme (counterpart of `__graft_entry__._flagship`):
+"""The port's entry points: the flagship programme and the extended Mauna
+Loa model.
+
+The flagship (counterpart of `__graft_entry__._flagship`):
 `f1 = GP(v1·SE(·/l1))`, `f2 = GP(Matern32(·/l2))`, `f3 = f1 + f2`, with `f3`
 observed under noise at x = linspace(-5, 5, n).
 
@@ -7,22 +10,41 @@ observed under noise at x = linspace(-5, 5, n).
 - `predict(theta, x, y, xp)` conditions the programme on `f3` and returns
   the posterior marginals of `f1` at `xp`.
 
-Both run on `cuda` unless the caller passes `device="cpu"`.  At N ≥ 4096 on
-the card the factorisation takes the blocked path through all three CUDA
-kernels; on the CPU the same path runs under `config.chol_backend("blocked")`
+The extended Mauna Loa model (counterpart of `examples/extended_mauna_loa.py`,
+built by `models.workloads.mauna_loa_style`): a shared trend under a CO₂-like
+and a temperature-like output, observed jointly as `BlockData`:
+
+- `mauna_loa_data(n_co2, n_T, dtype, device)`: the example's synthetic
+  data (seed 0), `(x_co2, y_co2, x_T, y_T)`;
+- `mauna_loa_spec(dtype, device)` and `obs_noise(t, n_co2, n_T)`: the
+  example's constrained spec and per-output noise;
+- `mauna_loa_step(theta, data)`: −logpdf over `BlockData(f_co2, f_T)` and
+  its gradient in the flat θ of the spec's free leaves;
+- `mauna_loa_fit(num_steps, ...)`: the example's Adam fit;
+- `mauna_loa_posterior` and `mauna_loa_predict`: the joint posterior, and
+  its marginals at `BlockData(f_co2, f_T, f_trend)`.
+
+Everything runs on `cuda` unless the caller passes `device="cpu"`.  At
+N ≥ 4096 on the card, an f32 factorisation takes the blocked path through
+all three CUDA kernels (any other dtype takes it with the library's base
+cases); on the CPU the same path runs under `config.chol_backend("blocked")`
 with the kernels' plain versions.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from stheno_tpu_torch import params as P
 from stheno_tpu_torch.convert import resolve_device
-from stheno_tpu_torch.finite_gp import logpdf, posterior
+from stheno_tpu_torch.finite_gp import logpdf, marginals, posterior
 from stheno_tpu_torch.gppp import gppp
 from stheno_tpu_torch.graph import GP
-from stheno_tpu_torch.inputs import GPPPInput
+from stheno_tpu_torch.inference import fit
+from stheno_tpu_torch.inputs import BlockData, GPPPInput
 from stheno_tpu_torch.kernels import Matern32Kernel, SEKernel, with_lengthscale
+from stheno_tpu_torch.models.workloads import mauna_loa_style
 
 THETA = dict(v1=1.5, l1=1.0, l2=0.5, noise=0.1)
 
@@ -72,3 +94,114 @@ def predict(theta, x, y, xp):
         f = build(theta)
         post = posterior(f(GPPPInput("f3", x), theta["noise"]), y)
         return post(GPPPInput("f1", xp)).mean_and_var()
+
+
+# ---------------------------------------------------------------------------
+# The extended Mauna Loa model
+# ---------------------------------------------------------------------------
+
+#: The model: a `@gppp` function of the constrained parameters.
+build_gp = mauna_loa_style
+
+
+def mauna_loa_data(n_co2=480, n_T=360, dtype=torch.float32, device="cuda"):
+    """The example's `synthetic_data` with seed 0: CO₂-like (trend and
+    seasonal) and temperature-like (trend) series, standardised, on yearly
+    grids 1980–2020 and 1985–2020 shifted by 2000.  Returns
+    `(x_co2, y_co2, x_T, y_T)` on `device`."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    t_co2 = np.linspace(1980.0, 2020.0, n_co2)
+    t_T = np.linspace(1985.0, 2020.0, n_T)
+    co2 = (
+        0.8 * (t_co2 - 2000.0) / 10.0
+        + 0.05 * ((t_co2 - 2000.0) / 10.0) ** 2
+        + 0.35 * np.sin(2 * np.pi * t_co2)
+        + 0.12 * np.cos(4 * np.pi * t_co2)
+        + 0.05 * rng.normal(size=n_co2)
+    )
+    temp = 0.6 * (t_T - 2000.0) / 10.0 + 0.3 * rng.normal(size=n_T)
+    co2 = (co2 - co2.mean()) / co2.std()
+    temp = (temp - temp.mean()) / temp.std()
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev)
+                 for a in (t_co2 - 2000.0, co2, t_T - 2000.0, temp))
+
+
+def mauna_loa_spec(dtype=torch.float32, device="cuda"):
+    """The example's constrained spec, its values as tensors of `dtype` on
+    `device`."""
+    dev = resolve_device(device)
+
+    def pos(v):
+        return P.positive(torch.tensor(v, dtype=dtype, device=dev))
+
+    return dict(
+        trend_scale=pos(0.1),
+        co2=dict(s_latent=pos(0.3), s_wiggle=pos(0.3), l_wiggle=pos(5.0), s_period=pos(0.3),
+                 freq=P.fixed(torch.tensor(1.0, dtype=dtype, device=dev)), s_noise=pos(0.1),
+                 s_mean=pos(1.0)),
+        temp=dict(s_trend=pos(1.0), s_wiggle=pos(1.0), l_wiggle=pos(0.5), s_noise=pos(0.1),
+                  s_mean=pos(1.0)),
+    )
+
+
+def obs_noise(t, n_co2, n_T):
+    """Per-point noise variances: s_noise² of each output over its block."""
+    return torch.cat([(t["co2"]["s_noise"] ** 2).expand(n_co2),
+                      (t["temp"]["s_noise"] ** 2).expand(n_T)])
+
+
+def mauna_loa_observations(data):
+    """`(BlockData(f_co2 at x_co2, f_T at x_T), y)`: the joint observation."""
+    x_co2, y_co2, x_T, y_T = data
+    return BlockData(GPPPInput("f_co2", x_co2), GPPPInput("f_T", x_T)), torch.cat([y_co2, y_T])
+
+
+def mauna_loa_nlml(t, data):
+    """−log p(y_co2, y_T | t): the joint marginal likelihood of both
+    outputs under the constrained parameters `t`."""
+    x, y = mauna_loa_observations(data)
+    fx = build_gp(t)(x, obs_noise(t, len(data[0]), len(data[2])))
+    return -logpdf(fx, y)
+
+
+def mauna_loa_step(theta, data):
+    """`(nlml, grad)` at the flat θ of the spec's free leaves (the spec in
+    θ's dtype and on its device)."""
+    _, unflatten = P.init(mauna_loa_spec(theta.dtype, theta.device))
+    th = theta.detach().requires_grad_(True)
+    val = mauna_loa_nlml(unflatten(th), data)
+    (grad,) = torch.autograd.grad(val, th)
+    return val.detach(), grad
+
+
+def mauna_loa_fit(num_steps=250, learning_rate=3e-2, data=None, log_every=0,
+                  dtype=torch.float32, device="cuda"):
+    """The example's fit: Adam on the nlml from the spec's initial values
+    (`data` defaults to the example's N = 840).  Returns `FitResult`."""
+    if data is None:
+        data = mauna_loa_data(dtype=dtype, device=device)
+    spec = mauna_loa_spec(data[0].dtype, data[0].device)
+    return fit(lambda t: mauna_loa_nlml(t, data), spec, num_steps=num_steps,
+               learning_rate=learning_rate, log_every=log_every)
+
+
+def mauna_loa_query(xp):
+    """The joint query of CO₂, temperature and the shared trend at `xp`."""
+    return BlockData(GPPPInput("f_co2", xp), GPPPInput("f_T", xp), GPPPInput("f_trend", xp))
+
+
+def mauna_loa_posterior(params, data):
+    """The joint posterior of the model given both outputs' observations."""
+    x, y = mauna_loa_observations(data)
+    return posterior(build_gp(params)(x, obs_noise(params, len(data[0]), len(data[2]))), y)
+
+
+def mauna_loa_predict(params, data, xp=None, noise=None):
+    """Posterior marginals at `mauna_loa_query(xp)` (`xp` defaults to the
+    example's 200 points on [−22, 25]): a `Marginals` of length 3·len(xp),
+    under `noise` (None: the dtype's default jitter)."""
+    if xp is None:
+        xp = torch.linspace(-22.0, 25.0, 200, dtype=data[0].dtype, device=data[0].device)
+    with torch.no_grad():
+        return marginals(mauna_loa_posterior(params, data)(mauna_loa_query(xp), noise))

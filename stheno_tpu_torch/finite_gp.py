@@ -1,8 +1,12 @@
 """FiniteGP and the exact-inference verbs (counterpart of
 `stheno_tpu/finite_gp.py:33-279`): observation noise, `FiniteGP`, `logpdf`,
-`posterior`/`PosteriorGP` and `marginals`.
+`posterior`/`PosteriorGP`, `marginals` and `rand`.
 
-Not ported yet: `rand`, VFE/`elbo`, `ApproxPosteriorGP`, `SparseFiniteGP`.
+Observations `y` and a dense noise matrix given on the host (numpy, or a
+tensor on another device) are moved to the covariance's device and dtype.
+
+Not ported yet: VFE/`elbo`, `ApproxPosteriorGP`, `SparseFiniteGP` (and so
+`rand`'s sparse branch).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ class FullNoise:
     S: torch.Tensor
 
     def add_to(self, K):
-        return K + self.S
+        return K + _like(self.S, K)
 
     def diag(self, n):
         return torch.diagonal(self.S)
@@ -166,9 +170,28 @@ def marginals(fx: FiniteGP) -> Marginals:
     return Marginals(m, v)
 
 
+def _like(t, ref):
+    """`t` (a tensor, numpy array or number) on `ref`'s device and dtype."""
+    return torch.as_tensor(t).to(device=ref.device, dtype=ref.dtype)
+
+
 def logpdf(fx, y):
     """log N(y; m, K + Σ).  `y` may be (N,) or (N, S)."""
-    return _chol.mvn_logpdf_psd(torch.as_tensor(y), fx.mean(), fx.cov())
+    K = fx.cov()
+    return _chol.mvn_logpdf_psd(_like(y, K), fx.mean(), K)
+
+
+def rand(generator, fx, num_samples=None):
+    """Sample y ~ N(mean, K + Σ): (N,), or (N, S) with `num_samples` = S,
+    the reference's column convention.  `generator` is a `torch.Generator`
+    on the covariance's device (or None for PyTorch's default generator);
+    it takes the place of the reference's key.  The factor takes the same
+    route as `logpdf`'s, so a large f32 covariance on the card is factored
+    by the blocked path and its kernels."""
+    L = _chol.cholesky_psd(fx.cov())
+    S = 1 if num_samples is None else num_samples
+    y = _chol.mvn_sample_chol(generator, fx.mean(), L, (S,)).mT
+    return y[:, 0] if num_samples is None else y
 
 
 @frozen_dataclass(eq=False)
@@ -217,5 +240,5 @@ def posterior(fx, y):
     """Condition `f(x, Σ)` on `y`: one factorisation, reused by every
     prediction."""
     L = _chol.cholesky_psd(fx.cov())
-    alpha = _chol.chol_solve(L, torch.as_tensor(y) - fx.mean())
+    alpha = _chol.chol_solve(L, _like(y, L) - fx.mean())
     return PosteriorGP(fx.f, fx.x, L, alpha)

@@ -13,16 +13,22 @@ plain function from hyperparameters to a dict of processes, into one:
 
     fx = model(theta)(GPPPInput("f3", x), 0.1)
 
-Only `GPPPInput` queries are routed so far; `BlockData` queries (and the
-`[(name, x), ...]` form, which becomes one) need the cross-process stack of
-the reference and raise `NotImplementedError`.
+A query is a `GPPPInput` (one process at some inputs), a `BlockData` of
+them (several processes jointly: the blocks are stacked by `graph.cross`,
+so `cov2` across two different `BlockData` runs through `cross_cov`), or a
+list of `(name, point)` pairs, grouped by name in order of first appearance
+into a `BlockData`:
+
+    fx = model(theta)(BlockData(GPPPInput("f1", x1), GPPPInput("f3", x3)), noise)
 """
 
 from __future__ import annotations
 
 import functools
 
-from stheno_tpu_torch.graph import GPC, AbstractProcess, cross_cov, cross_var
+import torch
+
+from stheno_tpu_torch.graph import GPC, AbstractProcess, cross, cross_cov, cross_var
 from stheno_tpu_torch.inputs import BlockData, GPPPInput
 from stheno_tpu_torch.tree import frozen_dataclass, static_field
 
@@ -40,13 +46,16 @@ class GPPP:
             if x.p not in self.processes:
                 raise KeyError(f"GPPP has no process {x.p!r}; has {sorted(self.processes)}")
             return self.processes[x.p], x.x
-        if isinstance(x, BlockData) or (
-            isinstance(x, (list, tuple)) and x and isinstance(x[0], tuple)
-        ):
-            raise NotImplementedError(
-                "BlockData queries of a GPPP need the cross-process stack, "
-                "which is not ported yet"
-            )
+        if isinstance(x, BlockData):
+            pairs = [self.extract(b) for b in x.blocks]
+            return cross([p for p, _ in pairs]), BlockData(*[v for _, v in pairs])
+        if isinstance(x, (list, tuple)) and x and isinstance(x[0], tuple):
+            grouped = {}  # name → points, in order of first appearance
+            for p, v in x:
+                grouped.setdefault(p, []).append(v)
+            blocks = [GPPPInput(p, torch.stack([torch.as_tensor(v) for v in vs]))
+                      for p, vs in grouped.items()]
+            return self.extract(BlockData(*blocks))
         raise TypeError(
             f"GPPP inputs must be GPPPInput, BlockData, or [(name, x), ...]; got {type(x)}"
         )

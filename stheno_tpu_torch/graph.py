@@ -15,18 +15,29 @@ every sum skips it, so `SumGP.cov` of two independent atomics adds their two
 covariances and never materialises (or adds) the two zero cross blocks.  The
 public `cross_cov`/`cross_var` return dense zeros, as the reference does.
 
-The other affine ops of the reference (constant and function shifts,
-function scalings, input composition, cross stacking, derivatives,
-convolutions) are not ported yet and raise `NotImplementedError`.
+The affine ops (the reference's `graph.py:130-1012`): constant and function
+shifts (`AddConstGP`, `AddFnGP`), function scalings (`ScaledFnGP`), input
+warps and composition (`CompositeGP`: `stretch`, `select`, `periodic`,
+`shift`, `compose`, `f @ warp`), `additive_gp`, wrapped leaves
+(`WrappedGP`, `atomic`) and the stacking of processes over `BlockData`
+(`CrossGP`, `cross`), which `GPPP` routing builds for a `BlockData` query.
+A function-valued argument is a `ParamFn` (its tensors reach autograd as
+any tensor does), a warp, or any callable (held as a `StaticFn`).
+
+Not ported yet: derivative and convolved processes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stheno_tpu_torch.inputs import input_device, input_dtype, input_length
+import dataclasses
+import math
+
+from stheno_tpu_torch.inputs import BlockData, input_device, input_dtype, input_length
 from stheno_tpu_torch.kernels.base import Kernel, kernelmatrix, kernelmatrix_diag
 from stheno_tpu_torch.means import MeanFunction, as_mean
+from stheno_tpu_torch.ops.pairwise import ensure_2d
 from stheno_tpu_torch.tree import as_param, frozen_dataclass, static_field
 
 
@@ -92,6 +103,44 @@ def _scale(s, t):
     return None if t is None else s * t
 
 
+@frozen_dataclass
+class StaticFn:
+    """A callable held as it is: its tensors, if any, are differentiated
+    wherever autograd meets them."""
+
+    fn: object = static_field()
+
+    def __call__(self, x):
+        return self.fn(x)
+
+
+@frozen_dataclass
+class ParamFn:
+    """`fn(params, x)` with `params` a tree of tensors: a function-valued
+    scaling, shift or warp whose parameters reach the gradient.
+
+        sigma = ParamFn(lambda p, x: p["a"] * torch.tanh(x), {"a": theta})
+        g = sigma * f
+    """
+
+    fn: object = static_field()
+    params: object = None
+
+    def __call__(self, x):
+        return self.fn(self.params, x)
+
+
+def as_callable_tree(f):
+    """A function-valued op argument as the ops hold it: a dataclass
+    callable (a `ParamFn`, `StaticFn` or warp) as it is, any other callable
+    as a `StaticFn`."""
+    if not callable(f):
+        raise TypeError(f"expected a callable, got {type(f)}")
+    if dataclasses.is_dataclass(f):
+        return f
+    return StaticFn(f)
+
+
 class AbstractProcess:
     """A (prior) Gaussian process node inside a programme.
 
@@ -107,7 +156,9 @@ class AbstractProcess:
         if isinstance(other, AbstractProcess):
             _check_same_gpc(self, other)
             return SumGP(self, other, n=self.gpc.next_index(), gpc=self.gpc)
-        raise NotImplementedError("adding a constant or a function to a GP is not ported yet")
+        if callable(other):
+            return AddFnGP(as_callable_tree(other), self, n=self.gpc.next_index(), gpc=self.gpc)
+        return AddConstGP(as_param(other), self, n=self.gpc.next_index(), gpc=self.gpc)
 
     def __radd__(self, other):
         return self.__add__(other)
@@ -115,13 +166,16 @@ class AbstractProcess:
     def __sub__(self, other):
         if isinstance(other, AbstractProcess):
             return self + (-other)
-        raise NotImplementedError("adding a constant or a function to a GP is not ported yet")
+        return self + (-as_param(other))
+
+    def __rsub__(self, other):
+        return other + (-self)
 
     def __mul__(self, other):
         if isinstance(other, AbstractProcess):
             raise TypeError("Cannot multiply two GPs together.")
         if callable(other):
-            raise NotImplementedError("scaling a GP by a function is not ported yet")
+            return ScaledFnGP(as_callable_tree(other), self, n=self.gpc.next_index(), gpc=self.gpc)
         return ScaledGP(as_param(other), self, n=self.gpc.next_index(), gpc=self.gpc)
 
     def __rmul__(self, other):
@@ -129,6 +183,10 @@ class AbstractProcess:
 
     def __neg__(self):
         return (-1.0) * self
+
+    def __matmul__(self, warp):
+        """`f @ warp`: input composition, f ∘ warp."""
+        return compose(self, warp)
 
     def __call__(self, x, noise=None):
         from stheno_tpu_torch.finite_gp import FiniteGP
@@ -175,6 +233,56 @@ def GP(mean_or_kernel, kernel=None, gpc=None) -> AtomicGP:
         raise TypeError(f"expected a Kernel, got {type(kern)}")
     gpc = gpc if gpc is not None else _current_gpc()
     return AtomicGP(as_mean(mean), kern, n=gpc.next_index(), gpc=gpc)
+
+
+_STATS_INTERFACE = ("mean", "cov", "cov2", "var", "var2")
+
+
+@frozen_dataclass(eq=False)
+class WrappedGP(AbstractProcess):
+    """Leaf node wrapping any object with the statistics interface (a GPPP,
+    a `PosteriorGP`, a process of another programme) as an independent
+    atomic of this programme: it keeps its own structure, and its cross
+    covariance with any other leaf is zero."""
+
+    wrapped: object
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    _is_atomic = True
+
+    def mean(self, x):
+        return self.wrapped.mean(x)
+
+    def cov(self, x):
+        return self.wrapped.cov(x)
+
+    def cov2(self, x, x2):
+        return self.wrapped.cov2(x, x2)
+
+    def var(self, x):
+        return self.wrapped.var(x)
+
+    def var2(self, x, x2):
+        return self.wrapped.var2(x, x2)
+
+
+def atomic(gp, gpc=None) -> AbstractProcess:
+    """Register `gp` in the programme `gpc` (or the active one) as a fresh
+    leaf: an `AtomicGP` takes a new index, a `(mean, kernel)` pair becomes
+    one, and any object with mean/cov/cov2/var/var2 is wrapped as a
+    `WrappedGP`."""
+    gpc = gpc if gpc is not None else _current_gpc()
+    if isinstance(gp, AtomicGP):
+        return AtomicGP(gp.mean_fn, gp.kernel, n=gpc.next_index(), gpc=gpc)
+    if isinstance(gp, tuple) and len(gp) == 2:
+        return AtomicGP(as_mean(gp[0]), gp[1], n=gpc.next_index(), gpc=gpc)
+    if all(hasattr(gp, m) for m in _STATS_INTERFACE):
+        return WrappedGP(gp, n=gpc.next_index(), gpc=gpc)
+    raise TypeError(
+        "atomic expects an AtomicGP, a (mean, kernel) tuple, or any object "
+        "implementing mean/cov/cov2/var/var2 (GPPP, PosteriorGP, ...)"
+    )
 
 
 @frozen_dataclass(eq=False)
@@ -232,6 +340,60 @@ class SumGP(AbstractProcess):
         return _sum(_cross_var(other, self.left, x, x2), _cross_var(other, self.right, x, x2))
 
 
+class _PassthroughCov(AbstractProcess):
+    """The covariance rules of an op that only shifts the mean."""
+
+    def cov(self, x):
+        return self.f.cov(x)
+
+    def cov2(self, x, x2):
+        return self.f.cov2(x, x2)
+
+    def var(self, x):
+        return self.f.var(x)
+
+    def var2(self, x, x2):
+        return self.f.var2(x, x2)
+
+    def _cross_cov_l(self, other, x, x2):
+        return _cross_cov(self.f, other, x, x2)
+
+    def _cross_cov_r(self, other, x, x2):
+        return _cross_cov(other, self.f, x, x2)
+
+    def _cross_var_l(self, other, x, x2):
+        return _cross_var(self.f, other, x, x2)
+
+    def _cross_var_r(self, other, x, x2):
+        return _cross_var(other, self.f, x, x2)
+
+
+@frozen_dataclass(eq=False)
+class AddConstGP(_PassthroughCov):
+    """`b + f` for a constant b: shifts the mean."""
+
+    b: object  # a tensor or a float (`as_param`)
+    f: AbstractProcess
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def mean(self, x):
+        return self.b + self.f.mean(x)
+
+
+@frozen_dataclass(eq=False)
+class AddFnGP(_PassthroughCov):
+    """`b + f` for a deterministic function b mapping (N,[D]) → (N,)."""
+
+    b: object
+    f: AbstractProcess
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def mean(self, x):
+        return torch.as_tensor(self.b(torch.as_tensor(x))) + self.f.mean(x)
+
+
 @frozen_dataclass(eq=False)
 class ScaledGP(AbstractProcess):
     """`σ * f` for a constant σ."""
@@ -267,6 +429,297 @@ class ScaledGP(AbstractProcess):
 
     def _cross_var_r(self, other, x, x2):
         return _scale(self.sigma, _cross_var(other, self.f, x, x2))
+
+
+def _scale_rows(s, t):
+    return None if t is None else s[:, None] * t
+
+
+def _scale_cols(t, s):
+    return None if t is None else t * s[None, :]
+
+
+@frozen_dataclass(eq=False)
+class ScaledFnGP(AbstractProcess):
+    """`σ * f` for a deterministic function σ mapping (N,[D]) → (N,)."""
+
+    sigma: object
+    f: AbstractProcess
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def _s(self, x):
+        return torch.as_tensor(self.sigma(torch.as_tensor(x)))
+
+    def mean(self, x):
+        return self._s(x) * self.f.mean(x)
+
+    def cov(self, x):
+        s = self._s(x)
+        return s[:, None] * self.f.cov(x) * s[None, :]
+
+    def cov2(self, x, x2):
+        return self._s(x)[:, None] * self.f.cov2(x, x2) * self._s(x2)[None, :]
+
+    def var(self, x):
+        return self._s(x) ** 2 * self.f.var(x)
+
+    def var2(self, x, x2):
+        return self._s(x) * self.f.var2(x, x2) * self._s(x2)
+
+    def _cross_cov_l(self, other, x, x2):
+        return _scale_rows(self._s(x), _cross_cov(self.f, other, x, x2))
+
+    def _cross_cov_r(self, other, x, x2):
+        return _scale_cols(_cross_cov(other, self.f, x, x2), self._s(x2))
+
+    def _cross_var_l(self, other, x, x2):
+        return _scale(self._s(x), _cross_var(self.f, other, x, x2))
+
+    def _cross_var_r(self, other, x, x2):
+        return _scale(self._s(x2), _cross_var(other, self.f, x, x2))
+
+
+# ---------------------------------------------------------------------------
+# Input warps and composition (reference `graph.py:589-729`)
+# ---------------------------------------------------------------------------
+
+
+@frozen_dataclass
+class Stretch:
+    """x ↦ l·x for a scalar, per-dimension vector or matrix l."""
+
+    l: object  # noqa: E741 - the reference's name
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        l = self.l  # noqa: E741
+        if torch.is_tensor(l) and l.dim() == 2:
+            return ensure_2d(x) @ l.T
+        if torch.is_tensor(l) and l.dim() == 1 and x.dim() == 2:
+            return x * l[None, :]
+        return l * x
+
+
+@frozen_dataclass
+class Select:
+    """x ↦ x[:, idx]; an integer idx gives one scalar per point."""
+
+    idx: object = static_field()
+
+    def __call__(self, x):
+        x = ensure_2d(x)
+        if isinstance(self.idx, int):
+            return x[:, self.idx]
+        return x[:, torch.as_tensor(self.idx, device=x.device)]
+
+
+@frozen_dataclass
+class Periodic:
+    """t ↦ [cos(2π f t), sin(2π f t)], a 2-D embedding of scalar inputs."""
+
+    freq: object
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        if x.dim() == 2 and x.shape[1] == 1:
+            x = x[:, 0]
+        w = 2.0 * math.pi * self.freq
+        return torch.stack([torch.cos(w * x), torch.sin(w * x)], dim=-1)
+
+
+@frozen_dataclass
+class Shift:
+    """x ↦ x − a."""
+
+    a: object
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        a = self.a
+        if x.dim() == 2 and torch.is_tensor(a) and a.dim() == 1:
+            return x - a[None, :]
+        return x - a
+
+
+@frozen_dataclass
+class FnWarp:
+    """Any vectorised input map (N,[D]) → (N,[D']); wrap a parameterised
+    one in `ParamFn`."""
+
+    fn: object = None
+
+    def __call__(self, x):
+        return self.fn(torch.as_tensor(x))
+
+
+_WARPS = (Stretch, Select, Periodic, Shift, FnWarp)
+
+
+@frozen_dataclass(eq=False)
+class CompositeGP(AbstractProcess):
+    """f ∘ warp: the statistics of f at warped inputs."""
+
+    f: AbstractProcess
+    warp: object
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def mean(self, x):
+        return self.f.mean(self.warp(x))
+
+    def cov(self, x):
+        return self.f.cov(self.warp(x))
+
+    def cov2(self, x, x2):
+        return self.f.cov2(self.warp(x), self.warp(x2))
+
+    def var(self, x):
+        return self.f.var(self.warp(x))
+
+    def var2(self, x, x2):
+        return self.f.var2(self.warp(x), self.warp(x2))
+
+    def _cross_cov_l(self, other, x, x2):
+        return _cross_cov(self.f, other, self.warp(x), x2)
+
+    def _cross_cov_r(self, other, x, x2):
+        return _cross_cov(other, self.f, x, self.warp(x2))
+
+    def _cross_var_l(self, other, x, x2):
+        return _cross_var(self.f, other, self.warp(x), x2)
+
+    def _cross_var_r(self, other, x, x2):
+        return _cross_var(other, self.f, x, self.warp(x2))
+
+
+def compose(f: AbstractProcess, warp) -> CompositeGP:
+    """f ∘ warp; a plain callable becomes an `FnWarp`."""
+    if not isinstance(warp, _WARPS) and callable(warp):
+        warp = FnWarp(as_callable_tree(warp))
+    return CompositeGP(f, warp, n=f.gpc.next_index(), gpc=f.gpc)
+
+
+def stretch(f: AbstractProcess, l) -> CompositeGP:  # noqa: E741
+    """`stretch(f, l)(x) == f(l·x)`: lengthscale 1/l."""
+    return compose(f, Stretch(as_param(l)))
+
+
+def select(f: AbstractProcess, idx) -> CompositeGP:
+    """f of the input dimensions `idx`."""
+    return compose(f, Select(idx))
+
+
+def periodic(f: AbstractProcess, freq) -> CompositeGP:
+    """A periodic process of frequency `freq`, by the 2-D embedding."""
+    return compose(f, Periodic(as_param(freq)))
+
+
+def shift(f: AbstractProcess, a) -> CompositeGP:
+    """`shift(f, a)(x) == f(x − a)`."""
+    return compose(f, Shift(as_param(a)))
+
+
+def additive_gp(fs, indices=None) -> AbstractProcess:
+    """Σ_d f_d(x[:, indices_d]): an additive process across input
+    dimensions."""
+    fs = list(fs)
+    if indices is None:
+        indices = list(range(len(fs)))
+    if len(fs) != len(indices):
+        raise ValueError("length(fs) must equal length(indices)")
+    out = None
+    for f, idx in zip(fs, indices):
+        p = select(f, idx)
+        out = p if out is None else out + p
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cross: processes stacked over BlockData (reference `graph.py:908-1012`)
+# ---------------------------------------------------------------------------
+
+
+@frozen_dataclass(eq=False)
+class CrossGP(AbstractProcess):
+    """One process over `BlockData`, formed by stacking `fs`: block i of
+    the inputs goes to process i."""
+
+    fs: tuple
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def _blocks(self, x):
+        if not isinstance(x, BlockData):
+            raise TypeError("CrossGP expects BlockData inputs")
+        if len(x.blocks) != len(self.fs):
+            raise ValueError(
+                f"BlockData has {len(x.blocks)} blocks but cross has {len(self.fs)} processes"
+            )
+        return x.blocks
+
+    def mean(self, x):
+        return torch.cat([f.mean(b) for f, b in zip(self.fs, self._blocks(x))])
+
+    def cov(self, x):
+        return self.cov2(x, x)
+
+    def cov2(self, x, x2):
+        bs = self._blocks(x)
+        if not isinstance(x2, BlockData):
+            raise TypeError("CrossGP.cov2 expects BlockData on both sides")
+        bs2 = self._blocks(x2)
+        rows = [torch.cat([cross_cov(fi, fj, bi, bj) for fj, bj in zip(self.fs, bs2)], dim=1)
+                for fi, bi in zip(self.fs, bs)]
+        return torch.cat(rows, dim=0)
+
+    def var(self, x):
+        return torch.cat([f.var(b) for f, b in zip(self.fs, self._blocks(x))])
+
+    def var2(self, x, x2):
+        return torch.cat([f.var2(b, b2) for f, b, b2 in
+                          zip(self.fs, self._blocks(x), self._blocks(x2))])
+
+    # the blocks are concatenated dense (a structural zero block becomes
+    # zeros), as the reference's are
+    def _cross_cov_l(self, other, x, x2):
+        return torch.cat([cross_cov(f, other, b, x2) for f, b in zip(self.fs, self._blocks(x))])
+
+    def _cross_cov_r(self, other, x, x2):
+        return torch.cat([cross_cov(other, f, x, b) for f, b in zip(self.fs, self._blocks(x2))],
+                         dim=1)
+
+    def _cross_var_l(self, other, x, x2):
+        # the paired diagonal slices the flat x2 to match each block (O(N));
+        # against another BlockData it is the diagonal of the dense block
+        if isinstance(x2, BlockData):
+            return torch.diagonal(self._cross_cov_l(other, x, x2))
+        out, off = [], 0
+        for f, b in zip(self.fs, self._blocks(x)):
+            nb = input_length(b)
+            out.append(cross_var(f, other, b, x2[off: off + nb]))
+            off += nb
+        return torch.cat(out)
+
+    def _cross_var_r(self, other, x, x2):
+        if isinstance(x, BlockData):
+            return torch.diagonal(self._cross_cov_r(other, x, x2))
+        out, off = [], 0
+        for f, b2 in zip(self.fs, self._blocks(x2)):
+            nb = input_length(b2)
+            out.append(cross_var(other, f, x[off: off + nb], b2))
+            off += nb
+        return torch.cat(out)
+
+
+def cross(fs) -> CrossGP:
+    """Stack processes of one programme into one process over `BlockData`
+    (used by `GPPP` routing)."""
+    fs = tuple(fs)
+    if len(fs) < 1:
+        raise ValueError("cross requires at least one process")
+    gpc = _check_same_gpc(*fs)
+    return CrossGP(fs, n=gpc.next_index(), gpc=gpc)
 
 
 def _independent(f, g) -> bool:

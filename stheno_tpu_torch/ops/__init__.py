@@ -4,6 +4,7 @@ from stheno_tpu_torch.ops.chol import (
     cholesky_psd,
     mvn_logpdf_chol,
     mvn_logpdf_psd,
+    mvn_sample_chol,
     solve_lower,
     solve_upper,
 )
@@ -16,6 +17,6 @@ from stheno_tpu_torch.ops.pairwise import (
 
 __all__ = [
     "chol_logdet", "chol_solve", "cholesky_psd", "mvn_logpdf_chol",
-    "mvn_logpdf_psd", "solve_lower", "solve_upper", "ensure_2d",
+    "mvn_logpdf_psd", "mvn_sample_chol", "solve_lower", "solve_upper", "ensure_2d",
     "pairwise_dist", "pairwise_dot", "pairwise_sqdist",
 ]

@@ -27,7 +27,8 @@ in each panel's read; `blocked_lauum` forms Mᵀ M of a lower-triangular M.
 Base cases: the raw scoped keys `base_cholesky` and `base_tri_inv`
 (`config.scoped(base_cholesky=fn)`) swap the factoriser and the inverse of
 the base blocks; `torch_chol_lower` and `torch_tri_inv_lower` are the
-library versions.  The port's defaults are kernels 2 and 3.  The
+library versions.  The port's defaults are kernels 2 and 3 for f32, and
+the library versions for any other dtype (`default_bases`).  The
 reference's defaults are XLA's built-ins, with its Pallas kernels as the
 swap-in (reference `blocked_cholesky.py:81-130`).
 
@@ -87,12 +88,26 @@ def torch_tri_inv_lower(L):
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
+def default_bases(dtype):
+    """The base cases a matrix of `dtype` takes when none is scoped in:
+    kernels 2 and 3 for f32, which is all they take; the library versions
+    for any other dtype.  The choice is made here, by dtype, before any
+    launch: the kernels still raise on f64 when called directly."""
+    if dtype == torch.float32:
+        return chol_block, tri_inv_block
+    return torch_chol_lower, torch_tri_inv_lower
+
+
 def _base_chol(A):
-    return _cfg.active_override("base_cholesky", chol_block)(A)
+    return _cfg.active_override("base_cholesky", default_bases(A.dtype)[0])(A)
+
+
+def _active_base_tri_inv(dtype):
+    return _cfg.active_override("base_tri_inv", default_bases(dtype)[1])
 
 
 def _base_tri_inv(L):
-    return _cfg.active_override("base_tri_inv", tri_inv_block)(L)
+    return _active_base_tri_inv(L.dtype)(L)
 
 
 def _diag_blocks(L, bs):
@@ -369,7 +384,7 @@ class _BlockedCholesky(torch.autograd.Function):
         else:
             L, invs = _blocked_cholesky_impl(A, block, base, sym), None
         ctx.bwd_params = bwd
-        ctx.base_tri_inv = _cfg.active_override("base_tri_inv", tri_inv_block)
+        ctx.base_tri_inv = _active_base_tri_inv(A.dtype)
         ctx.save_for_backward(L, invs)
         return L
 

@@ -1,5 +1,6 @@
 """Cholesky, triangular solves and the MvNormal logpdf (counterpart of
-`stheno_tpu/ops/chol.py:23-187`, `:268-288`).
+`stheno_tpu/ops/chol.py:23-187`, `:268-288`), and the sampler
+`mvn_sample_chol`.
 
 `cholesky_psd` routes a single large matrix on a CUDA device (N ≥ 4096), or
 any single matrix under `config.chol_backend("blocked")`, to the blocked
@@ -112,3 +113,12 @@ def mvn_logpdf_chol(y, mean, L):
 def mvn_logpdf_psd(y, mean, K_sig):
     """log N(y; mean, K_sig) straight from the covariance."""
     return mvn_logpdf_chol(y, mean, cholesky_psd(K_sig))
+
+
+def mvn_sample_chol(generator, mean, L, sample_shape=()):
+    """Samples of N(mean, L Lᵀ), shape (*sample_shape, N): mean + L ε with
+    ε standard normal from `generator` (a `torch.Generator` on L's device,
+    or None for the default one)."""
+    n = L.shape[-1]
+    eps = torch.randn((*sample_shape, n), generator=generator, dtype=L.dtype, device=L.device)
+    return mean + torch.einsum("ij,...j->...i", L, eps)

@@ -1,0 +1,3 @@
+from stheno_tpu_torch.utils.testing import check_finite_gp, check_process_interface
+
+__all__ = ["check_process_interface", "check_finite_gp"]

@@ -1,6 +1,7 @@
 """The port's blocked Cholesky, its reverse rule and the blocked solves
 against `stheno_tpu.ops.blocked_cholesky`, in f64 on the CPU (where the
-port's base cases run the plain versions of kernels 2 and 3)."""
+port's base cases are the library versions, as for any dtype but f32; f32
+takes kernels 2 and 3, here their plain versions)."""
 
 import jax
 import jax.numpy as jnp
@@ -211,3 +212,21 @@ def test_base_overrides_are_honoured_and_do_not_leak():
     assert calls == before
     assert stt.config.active_override("base_cholesky", None) is None
     assert stt.config.active_override("base_tri_inv", None) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_base_cases_are_chosen_by_dtype(dtype, monkeypatch):
+    """f32 blocks go to kernels 2 and 3; any other dtype to the library
+    versions, chosen before any launch (the kernels take f32 only)."""
+    calls = []
+    for name in ("chol_block", "tri_inv_block", "torch_chol_lower", "torch_tri_inv_lower"):
+        fn = getattr(tbc, name)
+        monkeypatch.setattr(tbc, name, lambda A, fn=fn, name=name: calls.append(name) or fn(A))
+    K = torch.as_tensor(_psd(14, 512), dtype=dtype)
+    L = tbc.blocked_cholesky(K, 256, 128)
+    want = {"chol_block", "tri_inv_block"} if dtype == torch.float32 else {
+        "torch_chol_lower", "torch_tri_inv_lower"}
+    assert set(calls) == want
+    assert tbc.default_bases(dtype) == (getattr(tbc, sorted(want)[0]), getattr(tbc, sorted(want)[1]))
+    np.testing.assert_allclose(L.double().numpy(), np.linalg.cholesky(K.double().numpy()),
+                               rtol=0, atol=1e-4 if dtype == torch.float32 else 1e-10)

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
+from stheno_tpu_torch.ops import chol as tchol
 from stheno_tpu_torch.cuda import chol_block as tcb
 from stheno_tpu_torch.cuda import kernelmatrix as tkm
 
@@ -126,3 +128,62 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
     with pytest.raises(ValueError):
         tkm.kernelmatrix_forward(x, None, "rq", torch.tensor(1.0, device=cuda_device))
     assert kern.COUNTERS["chol_block"].total == 1
+
+
+def _se_nlml(x, y, v, noise):
+    with stt.GPC():
+        f = stt.GP(v * stt.with_lengthscale(stt.SEKernel(), 0.7))
+    return -stt.logpdf(f(x, noise), y)
+
+
+def test_f64_logpdf_at_4096_takes_the_library_bases(cuda_device):
+    """An f64 covariance at N = 4096 on the card goes to the blocked factor,
+    whose base cases are chosen by dtype: the library's for f64 (kernels 2
+    and 3 take f32 only, and raise on f64 when called directly).  Value and
+    gradient against the torch.linalg route."""
+    f64 = torch.float64
+    x = torch.linspace(-5.0, 5.0, 4096, dtype=f64, device=cuda_device)
+    y = torch.sin(x) + 0.2 * torch.cos(7 * x)
+    K = torch.eye(4096, dtype=f64, device=cuda_device)
+    assert tchol._use_blocked(K)
+
+    def value_and_grad():
+        v = torch.tensor(1.5, dtype=f64, device=cuda_device, requires_grad=True)
+        noise = torch.tensor(0.1, dtype=f64, device=cuda_device, requires_grad=True)
+        val = _se_nlml(x, y, v, noise)
+        return val.item(), [g.item() for g in torch.autograd.grad(val, (v, noise))]
+
+    kern.reset_counters()
+    val, grad = value_and_grad()
+    torch.cuda.synchronize()
+    assert kern.COUNTERS["chol_block"].total == 0 and kern.COUNTERS["tri_inv_block"].total == 0
+    assert kern.COUNTERS["kernelmatrix"].total == 1  # kernel 1 takes f64
+    with stt.config.chol_backend("torch"):
+        val_ref, grad_ref = value_and_grad()
+    np.testing.assert_allclose(val, val_ref, rtol=1e-9)
+    np.testing.assert_allclose(grad, grad_ref, rtol=1e-7)
+    A = _spd_stack(1, 64, 12, f64, cuda_device)
+    with pytest.raises(TypeError):
+        tcb.chol_block(A)
+    with pytest.raises(TypeError):
+        tcb.tri_inv_block(torch.linalg.cholesky(A))
+
+
+def test_host_y_and_full_noise_move_to_the_card(cuda_device):
+    """A numpy y and a numpy (N, N) noise with inputs on the card: both are
+    moved to the covariance's device and dtype."""
+    rng = np.random.default_rng(13)
+    xh = np.sort(rng.uniform(-3, 3, 300))
+    y = np.sin(xh) + 0.1 * rng.normal(size=300)
+    S = np.diag(0.05 + 0.1 * rng.uniform(size=300)) + 0.01
+    out = {}
+    for dev in ("cpu", cuda_device):
+        x = torch.as_tensor(xh, dtype=torch.float32, device=dev)
+        with stt.GPC():
+            f = stt.GP(stt.SEKernel())
+        fx = f(x, S)
+        post = stt.posterior(fx, y)
+        out[str(dev)] = (stt.logpdf(fx, y).item(), post.mean(x[:50]).cpu().numpy())
+    (lp_cpu, m_cpu), (lp_gpu, m_gpu) = out.values()
+    np.testing.assert_allclose(lp_gpu, lp_cpu, rtol=1e-4)
+    np.testing.assert_allclose(m_gpu, m_cpu, rtol=0, atol=1e-4)

@@ -169,21 +169,25 @@ def test_structural_zero_cross_covariances():
 
 
 def test_error_paths():
-    """A GP outside a programme, an unknown tag, processes of two
-    programmes, GP × GP, a BlockData query and an unknown backend all raise."""
+    """A GP outside a programme, an unknown tag (also inside a BlockData),
+    processes of two programmes, GP × GP and an unknown backend all raise;
+    a BlockData query, which raised until the cross-process stack was
+    ported, now answers."""
     with pytest.raises(RuntimeError):
         stt.GP(stt.SEKernel())
     _, tf = _programme_pair()
     x = torch.zeros(3)
     with pytest.raises(KeyError, match="f1"):
         tf(stt.GPPPInput("nope", x), 0.1)
+    with pytest.raises(KeyError, match="f1"):
+        tf(stt.BlockData(stt.GPPPInput("f1", x), stt.GPPPInput("nope", x)), 0.1)
     _, tf2 = _programme_pair()
     with pytest.raises(ValueError):
         tf["f1"] + tf2["f1"]
     with pytest.raises(TypeError):
         tf["f1"] * tf["f2"]
-    with pytest.raises(NotImplementedError):
-        tf.mean(stt.BlockData(stt.GPPPInput("f1", x), stt.GPPPInput("f2", x)))
+    m = tf.mean(stt.BlockData(stt.GPPPInput("f1", x), stt.GPPPInput("f2", x[:2])))
+    assert m.shape == (5,) and not m.any()
     with pytest.raises(ValueError):
         stt.config.chol_backend("lax")
 
@@ -272,3 +276,167 @@ def test_free_verbs_match_reference():
     ]
     for got, want in pairs:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-14)
+
+
+def _block_queries(m, arr):
+    rng = np.random.default_rng(11)
+    xa, xb, xc = rng.normal(size=6), rng.normal(size=4), rng.normal(size=5)
+    B = m.BlockData(m.GPPPInput("f1", arr(xa)), m.GPPPInput("f3", arr(xb)))
+    B2 = m.BlockData(m.GPPPInput("f5", arr(xc)), m.GPPPInput("f4", arr(xa)), m.GPPPInput("f2", arr(xb)))
+    B3 = m.BlockData(m.GPPPInput("f2", arr(xa)), m.GPPPInput("f4", arr(xb)))  # len(B)
+    pairs = [("f2", arr(xa[0])), ("f1", arr(xb[1])), ("f2", arr(xc[2])), ("f5", arr(xa[3]))]
+    return B, B2, B3, pairs
+
+
+def test_blockdata_and_pair_queries_match_reference():
+    """BlockData queries and the [(name, x), ...] form (grouped by name in
+    order of first appearance) through both packages: statistics, cov2 and
+    var2 across two different BlockData, logpdf and posterior marginals."""
+    jf, tf = _programme_pair()
+    out = []
+    for m, f, arr in ((st, jf, jnp.asarray), (stt, tf, torch.as_tensor)):
+        B, B2, B3, pairs = _block_queries(m, arr)
+        y = arr(np.random.default_rng(12).normal(size=10))
+        post = m.posterior(f(B, 0.05), y)
+        ms = m.marginals(post(B2, 0.01))
+        out.append({
+            "mean": f.mean(B), "cov": f.cov(B), "var": f.var(B), "cov2": f.cov2(B, B2),
+            "var2": f.var2(B, B3), "cov2_t": f.cov2(B2, B),
+            "pairs_cov": f.cov(pairs), "pairs_mean": f.mean(pairs), "pairs_var": f.var(pairs),
+            "pairs_cov2": f.cov2(pairs, B), "logpdf": m.logpdf(f(B, 0.05), y),
+            "post_mean": ms.mean, "post_var": ms.var, "post_cov2": post.cov2(B2, B),
+        })
+    for k, want in out[0].items():
+        np.testing.assert_allclose(np.asarray(out[1][k]), np.asarray(want), rtol=1e-11, atol=1e-12,
+                                   err_msg=k)
+
+
+def test_pair_query_groups_by_first_appearance():
+    _, tf = _programme_pair()
+    x = torch.arange(4, dtype=torch.float64)
+    pairs = [("f2", x[0]), ("f1", x[1]), ("f2", x[2])]
+    B = stt.BlockData(stt.GPPPInput("f2", x[[0, 2]]), stt.GPPPInput("f1", x[1:2]))
+    np.testing.assert_array_equal(tf.cov(pairs).numpy(), tf.cov(B).numpy())
+    _, v = tf.extract(pairs)
+    assert v.block_sizes == (2, 1)
+
+
+def _sensor_fusion_pair():
+    from stheno_tpu.models import workloads as jw
+    from stheno_tpu_torch.models import workloads as tw
+
+    return jw.sensor_fusion(), tw.sensor_fusion()
+
+
+def test_sensor_fusion_joint_posterior_matches_reference():
+    """The sensor-fusion model (BASELINE #3): joint conditioning on both
+    sensors, read off at the latent and at each sensor, with the example's
+    own checks (`examples/sensor_fusion.py`: |E[y1 − f] − noise1_mean| and
+    |E[y2 − f] − √0.1·3.5| ≤ 1e-6)."""
+    rng = np.random.default_rng(123456)
+    x1, x2 = np.sort(rng.uniform(0, 10, 3)), np.sort(rng.uniform(0, 10, 10))
+    y = rng.normal(size=13)
+    xp = np.linspace(-2.5, 12.5, 200)
+    jf, tf = _sensor_fusion_pair()
+    res = []
+    for m, f, arr in ((st, jf, jnp.asarray), (stt, tf, torch.as_tensor)):
+        x = m.BlockData(m.GPPPInput("y1", arr(x1)), m.GPPPInput("y2", arr(x2)))
+        post = m.posterior(f(x, 1e-12), arr(y))
+        xp_all = m.BlockData(m.GPPPInput("f", arr(xp)), m.GPPPInput("y1", arr(xp)),
+                             m.GPPPInput("y2", arr(xp)))
+        ms = m.marginals(post(xp_all, 1e-9))
+        res.append((np.asarray(ms.mean), np.asarray(ms.var), np.asarray(m.logpdf(f(x, 1e-12), arr(y)))))
+    for got, want in zip(res[1], res[0]):
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    mf, m1, m2 = np.split(res[1][0], 3)
+    err1 = np.max(np.abs((m1 - mf) - (np.sin(xp) - 5.0 + np.sqrt(np.abs(xp)))))
+    err2 = np.max(np.abs((m2 - mf) - np.sqrt(1e-1) * 3.5))
+    assert err1 < 1e-6 and err2 < 1e-6, (err1, err2)
+
+
+def _mauna_loa_jax_spec():
+    from stheno_tpu import params as JP
+
+    pos = JP.positive
+    return dict(
+        trend_scale=pos(0.1),
+        co2=dict(s_latent=pos(0.3), s_wiggle=pos(0.3), l_wiggle=pos(5.0), s_period=pos(0.3),
+                 freq=JP.fixed(1.0), s_noise=pos(0.1), s_mean=pos(1.0)),
+        temp=dict(s_trend=pos(1.0), s_wiggle=pos(1.0), l_wiggle=pos(0.5), s_noise=pos(0.1),
+                  s_mean=pos(1.0)),
+    )
+
+
+def _mauna_loa_jax(data):
+    """The reference's nlml of the Mauna Loa model under constrained
+    parameters t, and its posterior marginals at BlockData(f_co2, f_T,
+    f_trend) of `xp`."""
+    from stheno_tpu.models.workloads import mauna_loa_style
+
+    jd = [jnp.asarray(t.numpy()) for t in data]
+    x = st.BlockData(st.GPPPInput("f_co2", jd[0]), st.GPPPInput("f_T", jd[2]))
+    y = jnp.concatenate([jd[1], jd[3]])
+
+    def fx(t):
+        noise = jnp.concatenate([jnp.full((len(jd[0]),), t["co2"]["s_noise"] ** 2),
+                                 jnp.full((len(jd[2]),), t["temp"]["s_noise"] ** 2)])
+        return mauna_loa_style(t)(x, noise)
+
+    def nlml(t):
+        return -st.logpdf(fx(t), y)
+
+    def predict(t, xp):
+        post = st.posterior(fx(t), y)
+        q = st.BlockData(st.GPPPInput("f_co2", xp), st.GPPPInput("f_T", xp), st.GPPPInput("f_trend", xp))
+        return st.marginals(post(q, 1e-9))
+
+    return nlml, predict
+
+
+def test_mauna_loa_blocked_matches_reference():
+    """The extended Mauna Loa model (BASELINE #4) at a ragged N = 1100 on the
+    blocked path on both sides (identity-padded to 2048, backward panels of
+    512): −logpdf and its gradient in θ (≤ 1e-8 relative), and the joint
+    posterior marginals at BlockData(f_co2, f_T, f_trend)."""
+    from stheno_tpu import params as JP
+    from stheno_tpu_torch import params as P
+    from stheno_tpu_torch.convert import spec_from_numpy
+
+    data = entry.mauna_loa_data(620, 480, torch.float64, device="cpu")
+    jnlml, jpredict = _mauna_loa_jax(data)
+    jth, junf = JP.init(_mauna_loa_jax_spec())
+    xp = np.linspace(-22.0, 25.0, 40)
+    s1, s2, s3, s4 = _blocked_scopes(512)
+    with s1, s2:
+        jval, jgrad = jax.jit(jax.value_and_grad(lambda th: jnlml(junf(th))))(jth)
+        # a point away from θ₀, so the posterior is not the prior's
+        jms = jax.jit(lambda th, q: jpredict(junf(th), q))(jth + 0.1, jnp.asarray(xp))
+    theta0, unflatten = P.init(spec_from_numpy(_mauna_loa_jax_spec(), device="cpu"))
+    np.testing.assert_array_equal(theta0.numpy(), np.asarray(jth))
+    with s3, s4:
+        val, grad = entry.mauna_loa_step(theta0, data)
+        ms = entry.mauna_loa_predict(unflatten(theta0 + 0.1), data, torch.as_tensor(xp), noise=1e-9)
+    np.testing.assert_allclose(val.item(), float(jval), rtol=1e-8)
+    jg = np.asarray(jgrad)
+    np.testing.assert_allclose(grad.numpy(), jg, rtol=0, atol=1e-8 * np.abs(jg).max())
+    np.testing.assert_allclose(ms.mean.numpy(), np.asarray(jms.mean), rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(ms.var.numpy(), np.asarray(jms.var), rtol=1e-7, atol=1e-9)
+
+
+def test_host_observations_take_the_covariance_dtype_and_device():
+    """A numpy y and a numpy (N, N) noise meet an f32 covariance: both are
+    moved to its dtype and device (they were added as they came, f64 on the
+    host, which failed)."""
+    _, tf = _programme_pair()
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.normal(size=20), dtype=torch.float32)
+    y = rng.normal(size=20)
+    S = np.diag(0.1 + rng.uniform(size=20)) + 0.01
+    fx = tf(stt.GPPPInput("f3", x), S)
+    lp = stt.logpdf(fx, y)
+    assert lp.dtype == torch.float32
+    post = stt.posterior(fx, y)
+    m = post.mean(stt.GPPPInput("f1", x))
+    assert m.dtype == torch.float32
+    lp64 = stt.logpdf(tf(stt.GPPPInput("f3", x.double()), torch.as_tensor(S)), torch.as_tensor(y))
+    np.testing.assert_allclose(lp.item(), lp64.item(), rtol=1e-5)

@@ -16,8 +16,8 @@ import torch
 
 import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
-from stheno_tpu_torch import entry, markov, perf_probe
-from stheno_tpu_torch.convert import theta_from_numpy
+from stheno_tpu_torch import entry, markov, params, perf_probe
+from stheno_tpu_torch.convert import spec_from_numpy, theta_from_numpy
 from stheno_tpu_torch.cuda import _build
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -76,10 +76,11 @@ def test_forbidden_tells_the_jax_package_from_the_port():
     assert not _forbidden("stheno_tpu_torch") and not _forbidden("stheno_tpu_torch.ops")
 
 
-def test_the_new_modules_are_walked():
-    for name in ("markov", "perf_probe"):
-        assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
-        assert f"stheno_tpu_torch.{name}" in MODULES
+@pytest.mark.parametrize("name", ["markov", "perf_probe", "params", "inference/vi", "models/workloads",
+                                  "utils/testing", "entry", "convert"])
+def test_the_new_modules_are_walked(name):
+    assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
+    assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
 
 
 @pytest.mark.parametrize("call", [
@@ -90,8 +91,13 @@ def test_the_new_modules_are_walked():
     lambda: perf_probe.main(["--n", "8", "null"]),
     lambda: markov.markov_gp_logpdf(stt.Matern32Kernel(), np.linspace(0, 1, 5), np.zeros(5), 0.1),
     lambda: markov.sde_representation(stt.Matern32Kernel()),
+    lambda: entry.mauna_loa_data(),
+    lambda: entry.mauna_loa_spec(),
+    lambda: entry.mauna_loa_fit(1),
+    lambda: spec_from_numpy({"a": np.ones(())}),
 ], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
-        "markov_gp_logpdf", "sde_representation"])
+        "markov_gp_logpdf", "sde_representation", "mauna_loa_data", "mauna_loa_spec",
+        "mauna_loa_fit", "spec_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -105,8 +111,16 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         val, grad = step(theta)
         x, y, xp, theta = entry.flagship_data(512, 64, torch.float32, device="cpu")
         m, v = entry.predict(theta, x, y, xp)
+        data = entry.mauna_loa_data(320, 192, torch.float32, device="cpu")
+        theta0, unflatten = params.init(entry.mauna_loa_spec(torch.float32, device="cpu"))
+        ml_val, ml_grad = entry.mauna_loa_step(theta0, data)
+        ms = entry.mauna_loa_predict(unflatten(theta0), data, xp)
+        ys = stt.rand(torch.Generator().manual_seed(0),
+                      entry.build_gp(unflatten(theta0))(entry.mauna_loa_query(xp)), 2)
     assert np.isfinite(val.item()) and all(np.isfinite(g.item()) for g in grad.values())
     assert m.shape == v.shape == (64,)
+    assert np.isfinite(ml_val.item()) and bool(torch.isfinite(ml_grad).all())
+    assert ms.mean.shape == (192,) and ys.shape == (192, 2)
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
         "kernelmatrix": 0, "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0}
 
