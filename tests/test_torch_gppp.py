@@ -424,9 +424,9 @@ def test_mauna_loa_blocked_matches_reference():
 
 
 def test_host_observations_take_the_covariance_dtype_and_device():
-    """A numpy y and a numpy (N, N) noise meet an f32 covariance: both are
-    moved to its dtype and device (they were added as they came, f64 on the
-    host, which failed)."""
+    """A numpy y and a numpy (N, N) noise meet an f32 covariance: the
+    results are f32 and agree with f64.  (With the covariance on the card,
+    the parent failed on these: tests/test_torch_cuda.py.)"""
     _, tf = _programme_pair()
     rng = np.random.default_rng(13)
     x = torch.as_tensor(rng.normal(size=20), dtype=torch.float32)
