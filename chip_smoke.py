@@ -41,7 +41,22 @@ the CUDA toolkit.  In one run it
    version, its bound and its nearest single PyTorch call (kernel 2 also by
    block size, and kernels 2 and 3 back to back and alone on the device),
    and breaks one step and one `predict` down by device kernel with
-   torch.profiler.
+   torch.profiler;
+9. runs the pseudo-point path (`entry.pseudo_points_*`, BASELINE #2: VFE
+   with inducing points in both latents of f3 = f1 + f2): (a) the example's
+   400 Adam steps at its N = 600 in f64 with its own assertions; (b) at
+   N = 131072 with 2 × 2048 inducing points, one −ELBO value-and-gradient
+   step in f32 (launch counts, peak memory) against f64 on the card, and
+   3 steps of `fit`; (c) the approximate posterior's marginals of f1 and f3
+   at 2 × 1024 points against f64, and `rand_sparse`; (d) on 16384 of the
+   points, the ELBO against the exact logpdf, and the exact logpdf by the
+   default route and by the fused one (`config.logpdf_fused("on")`, whose
+   backward launches kernel 3) against each other and f64; (e) SVGP at full
+   width: the optimal Gaussian q against the collapsed ELBO in f32 and f64,
+   and a Bernoulli minibatch step (|B| = 4096) against f64, then 3 Adam
+   steps; (f) Laplace with Bernoulli labels at N = 8192 (20 Newton steps,
+   each factoring an 8192² B) against f64; (g) the path's timings, a
+   profiled −ELBO step and kernel 1 at 2048 × 131072.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -79,6 +94,23 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SMS = 132
 # device kernels grouped by a substring of their (lower-cased) names
+#: the pseudo-point path: N observations, inducing inputs per latent, the
+#: example's own size, prediction points per process, the subset on which
+#: the exact logpdf fits the card, the SVGP minibatch, the Laplace N
+PP_N = 131072
+PP_M = 2048
+PP_SMALL = (600, 24)
+PP_XP = 1024
+PP_SUB = 16384
+PP_BATCH = 4096
+PP_LAPLACE_N = 8192
+#: kernel 1 against its plain version: absolute, values in [0, σ²] with
+#: σ² ≤ 1.7 (fp32 exp/FMA rounding)
+KM_TOL = 1e-5
+PP_VAL_TOL = 1e-3  # the full-width f32 −ELBO's limit against f64 (relative)
+#: the SVGP bound at the optimal q against the collapsed ELBO (relative):
+#: f64 holds the identity to rounding; f32 to the value's own limit
+PP_SVGP_TOL = {"float64": 1e-8, "float32": PP_VAL_TOL}
 PROFILE_KINDS = (
     ("kernelmatrix", ("km_kernel",)),
     ("chol_block", ("chol_block_kernel",)),
@@ -227,6 +259,368 @@ def spd_blocks(torch, batch, n, dtype, device, seed):
     A = G @ G.mT / n + torch.eye(n, dtype=torch.float64, device=device)
     return A.to(dtype=dtype)
 
+def counts_now(kern):
+    """Each kernel's launches since the last reset, total and by shape."""
+    return ({k: c.total for k, c in kern.COUNTERS.items()},
+            {k: {str(sh): v for sh, v in c.by_shape.items()} for k, c in kern.COUNTERS.items()})
+
+
+def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
+    """Phase 9: the pseudo-point path (BASELINE #2).  Returns the launch
+    counts of its −ELBO step and kernel 1's row at 2048 × 131072."""
+    import numpy as np
+
+    import stheno_tpu_torch as stt
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch import entry as E
+    from stheno_tpu_torch import params as P
+    from stheno_tpu_torch.cuda.kernelmatrix import kernelmatrix_forward, kernelmatrix_plain
+    from stheno_tpu_torch.finite_gp import VFE, _vfe_factors, rand_sparse
+    from stheno_tpu_torch.inference import (
+        SVGP, BernoulliLikelihood, laplace, svgp_elbo, svgp_init, svgp_optimal_gaussian)
+
+    f32, f64 = torch.float32, torch.float64
+
+    # (a) the example's own size, N = 600 and 24 inducing inputs per latent
+    # on [−8, 8], f64 (the example sets x64): the small torch.linalg route,
+    # kernel 1 in f64.  Its 400 Adam steps at 2e-2 and its assertions.
+    data_s = E.pseudo_points_data(*PP_SMALL, f64, dev, seed=7, half_width=8.0)
+    kern.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_s = E.pseudo_points_fit(400, 2e-2, data=data_s)
+    torch.cuda.synchronize()
+    fit_small_ms = (time.perf_counter() - t0) * 1e3 / 400
+    small_counts, _ = counts_now(kern)
+    require(small_counts["kernelmatrix"] > 0, "kernel 1 was not launched by the N = 600 fit")
+    with torch.no_grad():
+        fx_s, u_s = E.pseudo_points_observations(fit_s.params, data_s[0])
+        final_elbo = stt.elbo(VFE(u_s), fx_s, data_s[1]).item()
+        exact_lp = stt.logpdf(fx_s, data_s[1]).item()
+    xp_s = torch.linspace(-8.0, 8.0, 100, dtype=f64, device=dev)
+    ms_s = E.pseudo_points_predict(fit_s.params, data_s, xp_s, noise=1e-9)
+    _, m3 = stt.split(E.pseudo_points_query(xp_s), ms_s.mean)
+    xs_h, ys_h = data_s[0].cpu().numpy(), data_s[1].cpu().numpy()
+    rmse = float(np.sqrt(np.mean((np.interp(xs_h, xp_s.cpu().numpy(), m3.cpu().numpy()) - ys_h) ** 2)))
+    loss0, loss_end = fit_s.losses[0].item(), fit_s.losses[-1].item()
+    emit({"pseudo_points_small": {"n": PP_SMALL[0], "m_per_latent": PP_SMALL[1], "dtype": "float64",
+                                  "steps": 400, "learning_rate": 2e-2, "neg_elbo_first": loss0,
+                                  "neg_elbo_last": loss_end, "final_elbo": final_elbo,
+                                  "exact_logpdf": exact_lp, "f3_rmse_vs_data": rmse,
+                                  "fit_ms_per_step": fit_small_ms, "launches": small_counts, "card": card}})
+    require(loss_end < loss0, f"pseudo-points N=600: the loss did not fall ({loss0} -> {loss_end})")
+    require(final_elbo <= exact_lp, f"pseudo-points N=600: ELBO {final_elbo} > logpdf {exact_lp}")
+    require(final_elbo > exact_lp - 0.2 * abs(exact_lp) - 50,
+            f"pseudo-points N=600: ELBO {final_elbo} is far below logpdf {exact_lp}")
+    require(rmse < 0.35, f"pseudo-points N=600: f3 rmse {rmse} >= 0.35")
+    del data_s, fit_s, fx_s, u_s, ms_s
+
+    # (b) full width: N = 131072, 2 × 2048 inducing points, f32
+    data = E.pseudo_points_data(PP_N, PP_M, f32, dev)
+    data64 = tuple(t.to(f64) for t in data)  # the same f32-rounded inputs
+    theta0, _ = P.init(E.pseudo_points_spec(data[2]))
+    # θ's constrained values in θ's own dtype (a spec's unflatten casts to
+    # the dtype it was made in)
+    unflattens = {dt: P.init(E.pseudo_points_spec(data[2].to(dt)))[1] for dt in (f32, f64)}
+
+    def unflatten(theta):
+        return unflattens[theta.dtype](theta)
+
+    torch.cuda.synchronize()
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    val, grad = E.pseudo_points_step(theta0, data)
+    torch.cuda.synchronize()
+    peak_step_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_counts, step_shapes = counts_now(kern)
+    emit({"pseudo_point_step_launches": step_counts, "pseudo_point_step_launches_by_shape": step_shapes})
+    for name in FLAGSHIP_KERNELS:
+        require(step_counts[name] > 0, f"kernel {name} was not launched by the pseudo-point step")
+    require(math.isfinite(val.item()) and bool(torch.isfinite(grad).all()),
+            "pseudo-point step is not finite")
+    torch.cuda.empty_cache()
+    val64, grad64 = E.pseudo_points_step(theta0.to(f64), data64)
+    val_rel = abs(val.item() - val64.item()) / abs(val64.item())
+    grad_rel = ((grad.to(f64) - grad64).abs().max() / grad64.abs().max()).item()
+
+    def trace_sums(theta, d):
+        """Σ kff/s and Σ A² of the trace term, which cancel to far less than
+        either: f32's error in the value is read off them."""
+        with torch.no_grad():
+            fx, u = E.pseudo_points_observations(unflatten(theta.to(d[0].dtype)), d[0])
+            _, A, _, sqrt_s = _vfe_factors(VFE(u), fx)
+            return (fx.f.var(fx.x) / sqrt_s**2).sum().item(), (A * A).sum().item()
+
+    sums32, sums64 = trace_sums(theta0, data), trace_sums(theta0.to(f64), data64)
+    torch.cuda.empty_cache()
+    emit({"pseudo_point_check": {
+        "n": PP_N, "inducing": 2 * PP_M, "neg_elbo_f32": val.item(), "neg_elbo_f64": val64.item(),
+        "neg_elbo_rel_err": val_rel, "tolerance": PP_VAL_TOL,
+        "grad_hyper_f32": grad[:5].tolist(), "grad_hyper_f64": grad64[:5].tolist(),
+        "grad_order": "l1, l2, noise, v1, v2, then z",
+        "grad_max_err_rel_to_largest": grad_rel, "grad_tolerance": 5e-3,
+        "trace_sum_kff_over_s": {"f32": sums32[0], "f64": sums64[0]},
+        "trace_sum_A2": {"f32": sums32[1], "f64": sums64[1]},
+        "trace_difference": {"f32": sums32[0] - sums32[1], "f64": sums64[0] - sums64[1]},
+        "peak_step_gib": peak_step_gib}})
+    require(val_rel <= PP_VAL_TOL, f"pseudo-point −ELBO rel err {val_rel} > {PP_VAL_TOL}")
+    require(grad_rel <= 5e-3, f"pseudo-point gradient err {grad_rel} > 5e-3 of the largest")
+    del grad64
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit3 = E.pseudo_points_fit(3, 2e-2, data=data)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3 / 3
+    losses = fit3.losses.tolist()
+    emit({"pseudo_point_fit3_losses": losses})
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"pseudo-point fit at N = {PP_N}: losses {losses}")
+
+    # (c) the approximate posterior: marginals of f1 and f3 at 2 × 1024
+    # points against f64; `rand_sparse` of a SparseFiniteGP on the subset
+    params = fit3.params
+    params64 = {k: v.to(f64) for k, v in params.items()}
+    xp = torch.linspace(-1000.0, 1000.0, PP_XP, dtype=f32, device=dev)
+    kern.reset_counters()
+    ms = E.pseudo_points_predict(params, data, xp)
+    torch.cuda.synchronize()
+    predict_counts, _ = counts_now(kern)
+    for name in FLAGSHIP_KERNELS:
+        require(predict_counts[name] > 0, f"kernel {name} was not launched by pseudo_points_predict")
+    ms64 = E.pseudo_points_predict(params64, data64, xp.to(f64))
+    mean_err = (ms.mean.to(f64) - ms64.mean).abs().max().item()
+    var_err = (ms.var.to(f64) - ms64.var).abs().max().item()
+    mean_tol = 1e-2 * ms64.mean.abs().max().item()
+    var_tol = 1e-3 * ms64.var.abs().max().item()
+    rng = np.random.default_rng(1)
+    sub = torch.as_tensor(np.sort(rng.choice(PP_N, PP_SUB, replace=False)), device=dev)
+    x_sub, y_sub = data[0][sub], data[1][sub]
+    with torch.no_grad():
+        fx_sub, u0 = E.pseudo_points_observations(params, x_sub)
+        ys = rand_sparse(torch.Generator(device=dev).manual_seed(0), stt.SparseFiniteGP(fx_sub, u0), 4)
+    emit({"pseudo_point_predict_check": {
+        "points": 2 * PP_XP, "mean_max_abs_err": mean_err, "mean_tolerance": mean_tol,
+        "var_max_abs_err": var_err, "var_tolerance": var_tol,
+        "mean_range": [ms64.mean.min().item(), ms64.mean.max().item()],
+        "var_range": [ms64.var.min().item(), ms64.var.max().item()], "launches": predict_counts,
+        "rand_sparse": {"shape": list(ys.shape), "finite": bool(torch.isfinite(ys).all())}}})
+    require(bool(torch.isfinite(ms.mean).all() and torch.isfinite(ms.var).all()),
+            "pseudo-point predict not finite")
+    require(mean_err <= mean_tol, f"pseudo-point predict mean err {mean_err} > {mean_tol}")
+    require(var_err <= var_tol, f"pseudo-point predict var err {var_err} > {var_tol}")
+    require(bool(torch.isfinite(ys).all()) and ys.shape == (PP_SUB, 4), "rand_sparse samples")
+    del ms64, ys, fx_sub, u0
+    torch.cuda.empty_cache()
+
+    # (d) on 16384 of the points, where the exact logpdf fits the card: the
+    # bound, and the exact −logpdf and its gradient in the hyperparameters
+    # (θ's first five entries) by the default route and the fused one
+    sub_data = (x_sub, y_sub, data[2])
+    sub64 = tuple(t.to(f64) for t in sub_data)
+
+    def exact(theta, d, count_backward=False):
+        th = theta.detach().requires_grad_(True)
+        fx, _ = E.pseudo_points_observations(unflatten(th), d[0])
+        v = -stt.logpdf(fx, d[1])
+        if count_backward:
+            kern.reset_counters()
+        (g,) = torch.autograd.grad(v, th)
+        torch.cuda.synchronize()
+        return v.item(), g[:5], counts_now(kern)[0]
+
+    with torch.no_grad():
+        elbo_lp = {dt: (-E.pseudo_points_neg_elbo(unflatten(theta0.to(dt)), d).item(),
+                      stt.logpdf(E.pseudo_points_observations(unflatten(theta0.to(dt)), d[0])[0],
+                                 d[1]).item())
+                   for dt, d in ((f32, sub_data), (f64, sub64))}
+    v_def, g_def, _ = exact(theta0, sub_data)
+    with stt.config.logpdf_fused("on"):
+        v_fused, g_fused, fused_bwd_counts = exact(theta0, sub_data, count_backward=True)
+    v64, g64, _ = exact(theta0.to(f64), sub64)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def grad_err(a, b):
+        return ((a.to(f64) - b).abs().max() / b.abs().max()).item()
+
+    fused_check = {
+        "n": PP_SUB, "elbo_f32": elbo_lp[f32][0], "logpdf_f32": elbo_lp[f32][1],
+        "elbo_f64": elbo_lp[f64][0], "logpdf_f64": elbo_lp[f64][1],
+        "neg_logpdf": {"default": v_def, "fused": v_fused, "f64": v64},
+        "value_rel_err": {"default": rel(v_def, v64), "fused": rel(v_fused, v64),
+                          "fused_vs_default": rel(v_fused, v_def)},
+        "grad_err_rel_to_largest": {"default": grad_err(g_def, g64), "fused": grad_err(g_fused, g64),
+                                    "fused_vs_default": grad_err(g_fused, g_def.to(f64))},
+        "value_tolerance": 1e-4, "grad_tolerance": 5e-3, "fused_backward_launches": fused_bwd_counts}
+    emit({"pseudo_point_bound_check": fused_check})
+    for dt, (e, lp) in elbo_lp.items():
+        require(e <= lp, f"ELBO {e} > logpdf {lp} ({dt})")
+    require(fused_bwd_counts["tri_inv_block"] > 0, "kernel 3 was not launched by the fused backward")
+    for key, e in fused_check["value_rel_err"].items():
+        require(e <= 1e-4, f"exact logpdf at {PP_SUB} ({key}): value rel err {e} > 1e-4")
+    for key, e in fused_check["grad_err_rel_to_largest"].items():
+        require(e <= 5e-3, f"exact logpdf at {PP_SUB} ({key}): gradient err {e} > 5e-3")
+    del sub64
+    torch.cuda.empty_cache()
+
+    # (e) SVGP at full width: the optimal Gaussian q gives the collapsed
+    # ELBO (f32 and f64); a Bernoulli minibatch step against f64; 3 Adam steps
+    svgp_check = {}
+    for dt, d in ((f32, data), (f64, data64)):
+        with torch.no_grad():
+            fx, u = E.pseudo_points_observations(unflatten(theta0.to(dt)), d[0])
+            q = svgp_optimal_gaussian(svgp_init(u), fx, d[1])
+            e_svgp, e_vfe = svgp_elbo(q, fx, d[1]).item(), stt.elbo(VFE(u), fx, d[1]).item()
+        svgp_check[str(dt).split(".")[-1]] = {"svgp_elbo_at_optimum": e_svgp, "collapsed_elbo": e_vfe,
+                                              "rel_diff": rel(e_svgp, e_vfe)}
+        if dt == f32:
+            q_mu0, q_sqrt0 = q.q_mu, q.q_sqrt
+        del fx, u, q
+        torch.cuda.empty_cache()
+    labels = (data[1] > 0).to(f32)
+    scale = PP_N / PP_BATCH
+    lik = BernoulliLikelihood()
+
+    def svgp_neg(th, q_mu, q_sqrt, idx, dt=f32):
+        t = unflatten(th)
+        f = E.build_pseudo_points(t)
+        u = f(stt.BlockData(stt.GPPPInput("f1", t["z"]), stt.GPPPInput("f2", t["z"])),
+              E.PP_INDUCING_NOISE)
+        fx = f(stt.GPPPInput("f3", data[0][idx].to(dt)), E.PP_INDUCING_NOISE)
+        return -svgp_elbo(SVGP(u, q_mu, q_sqrt), fx, labels[idx].to(dt), scale=scale, likelihood=lik)
+
+    def svgp_step(dt, idx):
+        leaves = [a.detach().to(dt).requires_grad_(True) for a in (theta0, q_mu0, q_sqrt0)]
+        v = svgp_neg(*leaves, idx, dt)
+        return v.item(), torch.autograd.grad(v, leaves)
+
+    rng = np.random.default_rng(2)
+    batch = torch.as_tensor(np.sort(rng.choice(PP_N, PP_BATCH, replace=False)), device=dev)
+    kern.reset_counters()
+    sv32, sg32 = svgp_step(f32, batch)
+    torch.cuda.synchronize()
+    svgp_counts, svgp_shapes = counts_now(kern)
+    sv64, sg64 = svgp_step(f64, batch)
+    svgp_grad_err = {name: grad_err(a, b) for name, a, b in zip(("theta", "q_mu", "q_sqrt"), sg32, sg64)}
+    opt_leaves = [a.detach().clone().requires_grad_(True) for a in (theta0, q_mu0, q_sqrt0)]
+    opt = torch.optim.Adam(opt_leaves, lr=1e-2)
+    svgp_losses = []
+    for _ in range(3):
+        idx = torch.as_tensor(np.sort(rng.choice(PP_N, PP_BATCH, replace=False)), device=dev)
+        opt.zero_grad(set_to_none=True)
+        loss = svgp_neg(*opt_leaves, idx)
+        loss.backward()
+        opt.step()
+        svgp_losses.append(loss.item())
+    emit({"pseudo_point_svgp_check": {
+        "optimum_vs_collapsed": svgp_check, "tolerance_rel": PP_SVGP_TOL,
+        "minibatch": PP_BATCH, "scale": scale, "neg_elbo_f32": sv32, "neg_elbo_f64": sv64,
+        "value_rel_err": rel(sv32, sv64), "grad_err_rel_to_largest": svgp_grad_err,
+        "value_tolerance": PP_VAL_TOL, "grad_tolerance": 5e-3, "adam_losses": svgp_losses,
+        "launches": svgp_counts, "launches_by_shape": svgp_shapes}})
+    for key, c in svgp_check.items():
+        require(c["rel_diff"] <= PP_SVGP_TOL[key],
+                f"SVGP at the optimum against the collapsed ELBO ({key}): {c['rel_diff']}")
+    for name in FLAGSHIP_KERNELS:
+        require(svgp_counts[name] > 0, f"kernel {name} was not launched by the SVGP step")
+    require(rel(sv32, sv64) <= PP_VAL_TOL, f"SVGP minibatch value rel err {rel(sv32, sv64)}")
+    for name, e in svgp_grad_err.items():
+        require(e <= 5e-3, f"SVGP minibatch gradient ({name}) err {e} > 5e-3 of the largest")
+    require(all(math.isfinite(v) for v in svgp_losses), f"SVGP Adam losses {svgp_losses}")
+    del sg32, sg64, opt, opt_leaves
+    torch.cuda.empty_cache()
+
+    # (f) Laplace at N = 8192, the example's part 1 at its density (15 a
+    # unit) on [−273, 273]: labels Bernoulli(Φ(2 sin x)), SE (1.0, 0.5), 20
+    # Newton steps, each factoring an 8192² B
+    rng = np.random.default_rng(3)
+    xl = np.sort(rng.uniform(-273.0, 273.0, PP_LAPLACE_N))
+    p1 = torch.special.ndtr(torch.as_tensor(2.0 * np.sin(xl))).numpy()
+    yl = (rng.uniform(size=PP_LAPLACE_N) < p1).astype(np.float64)
+
+    def laplace_value_and_grad(dt):
+        v = torch.tensor(1.0, dtype=dt, device=dev, requires_grad=True)
+        ell = torch.tensor(0.5, dtype=dt, device=dev, requires_grad=True)
+        with stt.GPC():
+            g = stt.GP(v * stt.with_lengthscale(stt.SEKernel(), ell))
+        x = torch.as_tensor(xl, dtype=dt, device=dev)
+        res = laplace(g(x, 1e-9), torch.as_tensor(yl, dtype=dt, device=dev), lik, num_iters=20)
+        grads = torch.autograd.grad(res.log_evidence, (v, ell))
+        return res.log_evidence.item(), [a.item() for a in grads], res.newton_decrement.item()
+
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    lz32, lg32, dec32 = laplace_value_and_grad(f32)
+    torch.cuda.synchronize()
+    laplace_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    laplace_counts, _ = counts_now(kern)
+    torch.cuda.empty_cache()
+    lz64, lg64, dec64 = laplace_value_and_grad(f64)
+    torch.cuda.empty_cache()
+    lap_grad_rel = [abs(a - b) / abs(b) for a, b in zip(lg32, lg64)]
+    emit({"laplace_check": {"n": PP_LAPLACE_N, "newton_steps": 20, "log_evidence_f32": lz32,
+                            "log_evidence_f64": lz64, "value_rel_err": rel(lz32, lz64),
+                            "grad_f32": lg32, "grad_f64": lg64, "grad_rel_err": lap_grad_rel,
+                            "value_tolerance": 1e-4, "grad_tolerance": 5e-3,
+                            "newton_decrement_f32": dec32, "newton_decrement_f64": dec64,
+                            "decrement_tolerance_f64": 1e-8, "peak_gib_f32": laplace_peak_gib,
+                            "launches": laplace_counts}})
+    for name in FLAGSHIP_KERNELS:
+        require(laplace_counts[name] > 0, f"kernel {name} was not launched by laplace")
+    require(rel(lz32, lz64) <= 1e-4, f"laplace log evidence rel err {rel(lz32, lz64)} > 1e-4")
+    require(max(lap_grad_rel) <= 5e-3, f"laplace gradient rel err {lap_grad_rel} > 5e-3")
+    require(dec64 < 1e-8, f"laplace f64 newton decrement {dec64} >= 1e-8")
+
+    # (g) timings (host clock around synchronize, median of 3 after a
+    # warm-up), a profiled −ELBO step, and kernel 1 at 2048 × 131072
+    batch_idx = batch
+    timings = {
+        "vfe_step_ms": host_ms(lambda: E.pseudo_points_step(theta0, data), reps=3),
+        "vfe_fit_ms_per_step": fit_ms, "vfe_fit_small_ms_per_step": fit_small_ms,
+        "vfe_predict_ms": host_ms(lambda: E.pseudo_points_predict(params, data, xp), reps=3),
+        "svgp_step_ms": host_ms(lambda: svgp_step(f32, batch_idx), reps=3),
+        "laplace_ms": host_ms(lambda: laplace_value_and_grad(f32), reps=3),
+        "exact_step_16384_ms": host_ms(lambda: exact(theta0, sub_data), reps=3),
+    }
+    with stt.config.logpdf_fused("on"):
+        timings["exact_step_16384_fused_ms"] = host_ms(lambda: exact(theta0, sub_data), reps=3)
+    # the flagship step, default and fused, back to back in this phase
+    timings["step_ms"] = host_ms(lambda: flagship_step(flagship_theta), reps=3)
+    with stt.config.logpdf_fused("on"):
+        timings["fused_step_ms"] = host_ms(lambda: flagship_step(flagship_theta), reps=3)
+    timings["step_ms_after"] = host_ms(lambda: flagship_step(flagship_theta), reps=3)
+    # the −ELBO step's flops, 10·M²N in all: the forward's solve of N
+    # right-hand sides against the M² Luu (M²N) and the Gram AAᵀ (2M²N); the
+    # backward's two GEMMs of the Gram's adjoint (4M²N), the solve's adjoint
+    # (M²N) and its outer product L̄ = −tril(b̄ xᵀ) (2M²N)
+    m_tot = 2 * PP_M
+    step_flops = 10 * m_tot**2 * PP_N
+    step_bound, step_by = bound(0, step_flops)
+    emit({"pseudo_points": {"n": PP_N, "inducing": m_tot, "dtype": "float32", **timings,
+                            "step_bound_ms": step_bound, "step_bound_by": step_by,
+                            "step_flops": step_flops, "peak_step_gib": peak_step_gib,
+                            "launches_by_kernel": step_counts, "card": card}})
+    emit({"profile_pseudo_point_step": profile_ms(lambda: E.pseudo_points_step(theta0, data))})
+
+    zs = (data[2] / 1.0)[:, None].contiguous()
+    xs = (data[0] / 1.0)[:, None].contiguous()
+    v08 = torch.tensor(0.8, dtype=f32, device=dev)
+    with torch.no_grad():
+        cross_err = (kernelmatrix_forward(zs, xs, "se", v08)
+                     - kernelmatrix_plain(zs, xs, "se", v08)).abs().max().item()
+    require(cross_err <= KM_TOL,
+            f"kernelmatrix cross {PP_M}x{PP_N}: max abs err {cross_err} > {KM_TOL}")
+    cross = {"shape": f"cross {PP_M}x{PP_N} D=1 SE f32", "max_abs_err": cross_err,
+             "ms": event_ms(lambda: kernelmatrix_forward(zs, xs, "se", v08), reps=20),
+             "plain_ms": event_ms(lambda: kernelmatrix_plain(zs, xs, "se", v08), reps=3),
+             "bound_ms": bound((PP_M + PP_N + PP_M * PP_N) * 4, PP_M * PP_N * 10)[0]}
+    emit({"kernelmatrix_pseudo_point_cross": cross, "card": card})
+    del data, data64, sub_data, params, params64, x_sub, y_sub
+    torch.cuda.empty_cache()
+    return step_counts, cross
+
 
 def main():
     import torch
@@ -264,7 +658,6 @@ def main():
     f32 = torch.float32
     km_checks = []
     km_err_main = 0.0
-    KM_TOL = 1e-5  # absolute, values in [0, σ²] with σ² ≤ 1.7 (fp32 exp/FMA rounding)
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = []
     xs_main = torch.linspace(-5.0, 5.0, N, dtype=f32, device=dev)[:, None]
@@ -288,7 +681,15 @@ def main():
     cases.append(("se", "mauna loa seasonal same D=2", ml_d2, None, "ml"))
     cases.append(("se", "mauna loa trend cross D=1", (0.1 * ml_x_co2)[:, None].contiguous(),
                   (0.1 * ml_x_T)[:, None].contiguous(), "ml"))
-    km_err_ml = 0.0
+    # the pseudo-point path's shapes at its initial lengthscales (1.0): Kuu's
+    # two 2048² same-input blocks (SE for f1, Matern52 for f2) and Kuf's
+    # 2048 × 131072 cross block of z against x
+    pp_x, _, pp_z = E.pseudo_points_data(PP_N, PP_M, f32, dev)
+    pp_x, pp_z = pp_x[:, None].contiguous(), pp_z[:, None].contiguous()
+    cases.append(("se", "pseudo-point Kuu same D=1", pp_z, None, "pp"))
+    cases.append(("matern52", "pseudo-point Kuu same D=1", pp_z, None, "pp"))
+    cases.append(("se", "pseudo-point Kuf cross D=1", pp_z, pp_x, "pp"))
+    km_err_ml = km_err_pp = 0.0
     var = torch.tensor(1.7, dtype=f32, device=dev)
     for kind, label, x, y, main_shape in cases:
         K = kernelmatrix_forward(x, y, kind, var)
@@ -301,9 +702,12 @@ def main():
                 f"kernelmatrix {kind} {label}: max abs err {err} > {KM_TOL} or diagonal not exact")
         if main_shape == "ml":
             km_err_ml = max(km_err_ml, err)
+        elif main_shape == "pp":
+            km_err_pp = max(km_err_pp, err)
         elif main_shape:
             km_err_main = max(km_err_main, err)
         del K, Kp
+    del cases, pp_x, pp_z
     emit({"check": "kernelmatrix", "tolerance_abs": KM_TOL, "cases": km_checks})
 
     # the flagship covariance's leading block: the main path's base blocks
@@ -940,6 +1344,14 @@ def main():
                        "peak_step_gib": peak_step_gib, "card": card}})
     emit({"profile_step": profile_ms(lambda: step(theta))})
     emit({"profile_predict": profile_ms(lambda: predict(theta_d, x, y, xp))})
+
+    # ---- 9. the pseudo-point path (BASELINE #2) -------------------------------
+    torch.cuda.empty_cache()
+    pp_counts, pp_cross = pseudo_point_path(torch, dev, card, step, theta)
+    for row in kernels:
+        row["launches_pseudo_point_step"] = pp_counts[row["name"]]
+    kernels[0]["pseudo_point_cross"] = pp_cross
+    kernels[0]["max_abs_err_pseudo_points"] = km_err_pp
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

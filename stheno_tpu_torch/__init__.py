@@ -17,27 +17,38 @@ its closed-form reverse rule —
   (`atomic`) and `cross`;
 - GPPP queries at one process (`GPPPInput`), at several jointly
   (`BlockData`, `[(name, x), ...]`), and across them;
-- `logpdf` with its gradient, `rand`, `posterior` and `marginals`;
+- `logpdf` with its gradient, `rand`, `posterior` and `marginals`, and the
+  fused logpdf with its closed-form gradient (`config.logpdf_fused`);
+- pseudo-point inference: `VFE` with the collapsed bound `elbo`, the
+  approximate posterior `posterior_vfe`, `SparseFiniteGP`, with inducing
+  points in any process of a GPPP (interdomain);
 - constrained parameters (`params`) and the fitting loops
-  (`inference.fit`, `inference.fit_lbfgs`);
+  (`inference.fit`, `inference.fit_lbfgs`); SVGP, the likelihoods and the
+  Laplace approximation (`inference`);
 - the five BASELINE model families (`models`), the conformance checks
   (`utils.testing`), and the state-space tier (`markov`).
 """
 
 from stheno_tpu_torch import config
 from stheno_tpu_torch.finite_gp import (
+    VFE,
+    ApproxPosteriorGP,
     DiagNoise,
     FiniteGP,
     FullNoise,
     Marginals,
     PosteriorGP,
+    SparseFiniteGP,
     cov,
+    elbo,
+    elbo_fx,
     logpdf,
     marginals,
     mean,
     mean_and_cov,
     mean_and_var,
     posterior,
+    posterior_vfe,
     rand,
     var,
 )
@@ -92,7 +103,8 @@ GaussianProcessProbabilisticProgramme = GPPP
 __all__ = list(_kernels_all) + [
     "config", "DiagNoise", "FiniteGP", "FullNoise", "Marginals", "PosteriorGP",
     "cov", "logpdf", "marginals", "mean", "mean_and_cov", "mean_and_var",
-    "posterior", "rand", "var", "GPPP", "gppp", "GaussianProcessProbabilisticProgramme",
+    "posterior", "rand", "var", "VFE", "elbo", "elbo_fx", "posterior_vfe",
+    "ApproxPosteriorGP", "SparseFiniteGP", "GPPP", "gppp", "GaussianProcessProbabilisticProgramme",
     "GP", "GPC", "AbstractProcess", "AddConstGP", "AddFnGP", "AtomicGP", "CompositeGP",
     "CrossGP", "FnWarp", "ParamFn", "Periodic", "ScaledFnGP", "ScaledGP", "Select",
     "Shift", "StaticFn", "Stretch", "SumGP", "WrappedGP", "additive_gp", "atomic",

@@ -3,8 +3,9 @@
 
 - Default observation noise (jitter) depends on the dtype.
 - Thread-local scoped overrides of the blocked linear algebra: the Cholesky
-  backend (`chol_backend`), the reverse rule's knobs (`bwd_params`), and the
-  raw keys `base_cholesky` and `base_tri_inv`, which swap the factoriser and
+  backend (`chol_backend`), the reverse rule's knobs (`bwd_params`), the
+  fused MvNormal logpdf's routing (`logpdf_fused`), and the raw keys
+  `base_cholesky` and `base_tri_inv`, which swap the factoriser and
   the triangular inverse of the blocked Cholesky's base blocks
   (`scoped(base_cholesky=fn)`).  A scope cannot leak, even on an exception:
 
@@ -94,3 +95,12 @@ def chol_backend(name):
     if name not in ("auto", "blocked", "torch"):
         raise ValueError(f"unknown Cholesky backend {name!r}")
     return scoped(chol_backend=name)
+
+
+def logpdf_fused(mode):
+    """Scope the fused MvNormal logpdf (`ops.chol.mvn_logpdf_psd`): 'off'
+    (the default), 'auto' (wherever the blocked Cholesky would be used) or
+    'on'."""
+    if mode not in ("off", "auto", "on"):
+        raise ValueError(f"unknown fused-logpdf mode {mode!r}; expected 'off', 'auto' or 'on'")
+    return scoped(logpdf_fused=mode)

@@ -1,7 +1,12 @@
 """Carry a GP programme's numbers across from numpy (or the JAX package, by
-way of `np.asarray`) into tensors, and pick the device of an entry point."""
+way of `np.asarray`) into tensors, and pick the device of an entry point:
+hyperparameter trees (`theta_from_numpy`), parameter specs
+(`spec_from_numpy`), SVGP variational states (`svgp_from_numpy`) and
+likelihoods (`likelihood_from_numpy`)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -75,3 +80,42 @@ def spec_from_numpy(spec, dtype=None, device="cuda"):
         return tensor(s)
 
     return carry(spec)
+
+
+def svgp_from_numpy(svgp, fz, dtype=None, device="cuda"):
+    """The port's `SVGP` over the inducing FiniteGP `fz` (built with the
+    port), with the variational state `q_mu`, `q_sqrt` of `svgp` (the JAX
+    package's, or anything holding those two arrays) read with
+    `np.asarray` onto `device`, cast to `dtype` when given."""
+    from stheno_tpu_torch.inference.svgp import SVGP
+
+    dev = resolve_device(device)
+
+    def tensor(v):
+        t = torch.tensor(np.asarray(v), device=dev)
+        return t.to(dtype) if dtype is not None else t
+
+    return SVGP(fz, tensor(svgp.q_mu), tensor(svgp.q_sqrt))
+
+
+def likelihood_from_numpy(lik, dtype=None, device="cuda"):
+    """The port's likelihood of the same class as `lik` (the JAX package's
+    `GaussianLikelihood`, `BernoulliLikelihood`, `PoissonLikelihood` or
+    `StudentTLikelihood`, found by name): its structural fields (`link`,
+    `n_gh`) as they are, each numeric one read with `np.asarray` into a
+    tensor on `device`, cast to `dtype` when given."""
+    from stheno_tpu_torch.inference import likelihoods as L
+
+    name = type(lik).__name__
+    cls = getattr(L, name, None)
+    if cls is None or name not in L.__all__ or name == "Likelihood":
+        raise ValueError(f"likelihood_from_numpy: unknown likelihood {name!r}")
+    dev = resolve_device(device)
+    kwargs = {}
+    for fld in dataclasses.fields(cls):
+        v = getattr(lik, fld.name)
+        if not fld.metadata.get("static"):
+            v = torch.tensor(np.asarray(v), device=dev)
+            v = v.to(dtype) if dtype is not None else v
+        kwargs[fld.name] = v
+    return cls(**kwargs)

@@ -1,5 +1,5 @@
-"""The port's entry points: the flagship programme and the extended Mauna
-Loa model.
+"""The port's entry points: the flagship programme, the extended Mauna Loa
+model and the pseudo-point programme.
 
 The flagship (counterpart of `__graft_entry__._flagship`):
 `f1 = GP(v1·SE(·/l1))`, `f2 = GP(Matern32(·/l2))`, `f3 = f1 + f2`, with `f3`
@@ -24,6 +24,21 @@ and a temperature-like output, observed jointly as `BlockData`:
 - `mauna_loa_posterior` and `mauna_loa_predict`: the joint posterior, and
   its marginals at `BlockData(f_co2, f_T, f_trend)`.
 
+The pseudo-point programme (counterpart of
+`examples/gppp_and_pseudo_points.py`, built by
+`models.workloads.pseudo_points_model`): `f1 = v1·SE(·/l1)`,
+`f2 = v2·Matern52(·/l2)`, `f3 = f1 + f2`, with `f3` observed under noise and
+pseudo-points in both latents, `BlockData(f1 at z, f2 at z)`, trained by
+the collapsed Titsias ELBO (VFE):
+
+- `pseudo_points_data(n, m, dtype, device)`: x sorted uniform, a slow and a
+  fast sinusoid under noise for y, and z, made with numpy from a seed;
+- `pseudo_points_spec(z)`: the example's spec at its initial values, z
+  unconstrained;
+- `pseudo_points_neg_elbo(t, data)`, `pseudo_points_step(theta, data)`
+  (value and gradient in the flat θ), `pseudo_points_fit` (Adam) and
+  `pseudo_points_predict` (`posterior_vfe`, marginals of f1 and f3).
+
 Everything runs on `cuda` unless the caller passes `device="cpu"`.  At
 N ≥ 4096 on the card, an f32 factorisation takes the blocked path through
 all three CUDA kernels (any other dtype takes it with the library's base
@@ -38,13 +53,13 @@ import torch
 
 from stheno_tpu_torch import params as P
 from stheno_tpu_torch.convert import resolve_device
-from stheno_tpu_torch.finite_gp import logpdf, marginals, posterior
+from stheno_tpu_torch.finite_gp import VFE, elbo, logpdf, marginals, posterior, posterior_vfe
 from stheno_tpu_torch.gppp import gppp
 from stheno_tpu_torch.graph import GP
 from stheno_tpu_torch.inference import fit
 from stheno_tpu_torch.inputs import BlockData, GPPPInput
 from stheno_tpu_torch.kernels import Matern32Kernel, SEKernel, with_lengthscale
-from stheno_tpu_torch.models.workloads import mauna_loa_style
+from stheno_tpu_torch.models.workloads import mauna_loa_style, pseudo_points_model
 
 THETA = dict(v1=1.5, l1=1.0, l2=0.5, noise=0.1)
 
@@ -205,3 +220,88 @@ def mauna_loa_predict(params, data, xp=None, noise=None):
         xp = torch.linspace(-22.0, 25.0, 200, dtype=data[0].dtype, device=data[0].device)
     with torch.no_grad():
         return marginals(mauna_loa_posterior(params, data)(mauna_loa_query(xp), noise))
+
+
+# ---------------------------------------------------------------------------
+# The pseudo-point programme (VFE with interdomain inducing points)
+# ---------------------------------------------------------------------------
+
+#: The model: a `@gppp` function of the constrained parameters.
+build_pseudo_points = pseudo_points_model
+#: The inducing points' noise (the example's).
+PP_INDUCING_NOISE = 1e-6
+
+
+def pseudo_points_data(n=131072, m=2048, dtype=torch.float32, device="cuda", seed=0,
+                       half_width=1024.0):
+    """`(x, y, z)` on `device`: x (n,) sorted uniform on [−w, w] with
+    w = `half_width`, y = sin(x/2) + 0.3·sin(2.5x + 1) + √0.05·ε (a slow
+    part on f1's scale and a fast part on f2's) and z = linspace(−w, w, m),
+    the inducing inputs shared by both latents, made with numpy from `seed`."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-half_width, half_width, n))
+    y = np.sin(x / 2) + 0.3 * np.sin(2.5 * x + 1.0) + np.sqrt(0.05) * rng.normal(size=n)
+    z = np.linspace(-half_width, half_width, m)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y, z))
+
+
+def pseudo_points_spec(z):
+    """The example's spec at its initial values, in z's dtype and on its
+    device: v1 = v2 = 0.8, l1 = l2 = 1, noise 0.2, and the inducing inputs
+    z unconstrained."""
+
+    def pos(v):
+        return P.positive(torch.tensor(v, dtype=z.dtype, device=z.device))
+
+    return dict(v1=pos(0.8), l1=pos(1.0), v2=pos(0.8), l2=pos(1.0), noise=pos(0.2), z=z)
+
+
+def pseudo_points_observations(t, x):
+    """`(fx, u)`: f3 at x under noise t["noise"], and the pseudo-points
+    `BlockData(f1 at t["z"], f2 at t["z"])`, both from one built programme."""
+    f = build_pseudo_points(t)
+    fx = f(GPPPInput("f3", x), t["noise"])
+    u = f(BlockData(GPPPInput("f1", t["z"]), GPPPInput("f2", t["z"])), PP_INDUCING_NOISE)
+    return fx, u
+
+
+def pseudo_points_neg_elbo(t, data):
+    """−ELBO of y under the constrained parameters `t` (`data` = (x, y, …))."""
+    fx, u = pseudo_points_observations(t, data[0])
+    return -elbo(VFE(u), fx, data[1])
+
+
+def pseudo_points_step(theta, data):
+    """`(−elbo, grad)` at the flat θ of the spec's free leaves (in the order
+    l1, l2, noise, v1, v2, z)."""
+    _, unflatten = P.init(pseudo_points_spec(data[2].to(theta.dtype)))
+    th = theta.detach().requires_grad_(True)
+    val = pseudo_points_neg_elbo(unflatten(th), data)
+    (grad,) = torch.autograd.grad(val, th)
+    return val.detach(), grad
+
+
+def pseudo_points_fit(num_steps=400, learning_rate=2e-2, data=None, log_every=0,
+                      dtype=torch.float32, device="cuda"):
+    """The example's fit: Adam on the −ELBO from the spec's initial values,
+    z included (`data` defaults to the full width, N = 131072 with 2048
+    inducing inputs per latent).  Returns `FitResult`."""
+    if data is None:
+        data = pseudo_points_data(dtype=dtype, device=device)
+    return fit(lambda t: pseudo_points_neg_elbo(t, data), pseudo_points_spec(data[2]),
+               num_steps=num_steps, learning_rate=learning_rate, log_every=log_every)
+
+
+def pseudo_points_query(xp):
+    """The joint query of f1 and f3 at `xp`."""
+    return BlockData(GPPPInput("f1", xp), GPPPInput("f3", xp))
+
+
+def pseudo_points_predict(params, data, xp, noise=None):
+    """The VFE approximate posterior's marginals at `pseudo_points_query(xp)`
+    (f1, then f3), under `noise` (None: the dtype's default jitter)."""
+    with torch.no_grad():
+        fx, u = pseudo_points_observations(params, data[0])
+        post = posterior_vfe(VFE(u), fx, data[1])
+        return marginals(post(pseudo_points_query(xp), noise))

@@ -1,16 +1,23 @@
-"""FiniteGP and the exact-inference verbs (counterpart of
-`stheno_tpu/finite_gp.py:33-279`): observation noise, `FiniteGP`, `logpdf`,
-`posterior`/`PosteriorGP`, `marginals` and `rand`.
+"""FiniteGP and the inference verbs (counterpart of
+`stheno_tpu/finite_gp.py`): observation noise, `FiniteGP`, `logpdf`,
+`posterior`/`PosteriorGP`, `marginals` and `rand`; and the pseudo-point
+family: `VFE` with the collapsed Titsias bound `elbo`, the approximate
+posterior `posterior_vfe`/`ApproxPosteriorGP`, and `SparseFiniteGP`, whose
+`logpdf` is the ELBO and whose `posterior` is the VFE posterior.
+
+The VFE path is O(N M²) and never forms an N×N matrix: with
+Luu = chol(Kuu), A = Luu⁻¹ Kuf / √s and B = I + A Aᵀ = LB LBᵀ, every
+quantity is a GEMM, a triangular solve or a factor of an M×M matrix.  The
+pseudo-points may tag any process of a GPPP, latent ones included
+(interdomain inducing points).
 
 Observations `y` and a dense noise matrix given on the host (numpy, or a
 tensor on another device) are moved to the covariance's device and dtype.
-
-Not ported yet: VFE/`elbo`, `ApproxPosteriorGP`, `SparseFiniteGP` (and so
-`rand`'s sparse branch).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -135,16 +142,12 @@ def mean(fx_or_f, x=None):
 
 def cov(a, b=None, x=None, x2=None):
     """`cov(fx)`, `cov(f, x)`, `cov(fx, gx)` or `cov(f, g, x, x2)`."""
-    from stheno_tpu_torch.graph import AbstractProcess, cross_cov
+    from stheno_tpu_torch.graph import cross_cov
 
     if b is None and x is None:
         return a.cov()
     if isinstance(b, FiniteGP):
-        if a.f is b.f:
-            return a.f.cov2(a.x, b.x)
-        if isinstance(a.f, AbstractProcess) and isinstance(b.f, AbstractProcess):
-            return cross_cov(a.f, b.f, a.x, b.x)
-        raise TypeError("cov(fx, gx) requires processes from the same programme")
+        return _cross_cov_any(a.f, a.x, b.f, b.x)
     if x is None:
         return a.cov(b)
     return cross_cov(a, b, x, x if x2 is None else x2)
@@ -171,12 +174,18 @@ def marginals(fx: FiniteGP) -> Marginals:
 
 
 def _like(t, ref):
-    """`t` (a tensor, numpy array or number) on `ref`'s device and dtype."""
-    return torch.as_tensor(t).to(device=ref.device, dtype=ref.dtype)
+    """`t` (a tensor, numpy array or number) on `ref`'s device and dtype (a
+    number is made in that dtype, not rounded through float32 first)."""
+    if torch.is_tensor(t):
+        return t.to(device=ref.device, dtype=ref.dtype)
+    return torch.as_tensor(t, dtype=ref.dtype, device=ref.device)
 
 
 def logpdf(fx, y):
-    """log N(y; m, K + Σ).  `y` may be (N,) or (N, S)."""
+    """log N(y; m, K + Σ).  `y` may be (N,) or (N, S).  A `SparseFiniteGP`
+    gives its ELBO (per column of a 2-D `y`)."""
+    if isinstance(fx, SparseFiniteGP):
+        return _sparse_logpdf(fx, y)
     K = fx.cov()
     return _chol.mvn_logpdf_psd(_like(y, K), fx.mean(), K)
 
@@ -187,7 +196,10 @@ def rand(generator, fx, num_samples=None):
     on the covariance's device (or None for PyTorch's default generator);
     it takes the place of the reference's key.  The factor takes the same
     route as `logpdf`'s, so a large f32 covariance on the card is factored
-    by the blocked path and its kernels."""
+    by the blocked path and its kernels.  A `SparseFiniteGP` samples its
+    observation FiniteGP."""
+    if isinstance(fx, SparseFiniteGP):
+        fx = fx.fobs
     L = _chol.cholesky_psd(fx.cov())
     S = 1 if num_samples is None else num_samples
     y = _chol.mvn_sample_chol(generator, fx.mean(), L, (S,)).mT
@@ -236,9 +248,191 @@ class PosteriorGP:
         return FiniteGP(self, x, noise)
 
 
-def posterior(fx, y):
+def posterior(fx, y, y2=None):
     """Condition `f(x, Σ)` on `y`: one factorisation, reused by every
-    prediction."""
+    prediction.  A `SparseFiniteGP` gives the VFE approximate posterior, and
+    the reference's `posterior(VFE(u), fx, y)` form is taken too."""
+    if isinstance(fx, VFE):
+        return posterior_vfe(fx, y, y2)
+    if isinstance(fx, SparseFiniteGP):
+        return posterior_vfe(VFE(fx.finducing), fx.fobs, y)
     L = _chol.cholesky_psd(fx.cov())
     alpha = _chol.chol_solve(L, _like(y, L) - fx.mean())
     return PosteriorGP(fx.f, fx.x, L, alpha)
+
+
+# ---------------------------------------------------------------------------
+# VFE: the Titsias collapsed bound and its approximate posterior
+# ---------------------------------------------------------------------------
+
+
+@frozen_dataclass(eq=False)
+class VFE:
+    """The Titsias pseudo-point approximation, given by the inducing-point
+    FiniteGP `fz` (which may tag any process of a GPPP, latent ones
+    included)."""
+
+    fz: FiniteGP
+
+
+def _cross_cov_any(f, x_f, g, x_g):
+    """Covariance between two (process, inputs) pairs on graph nodes or on
+    one GPPP with tagged inputs: `cov(fx, gx)`, and pseudo-points against
+    observations."""
+    from stheno_tpu_torch.graph import AbstractProcess, cross_cov
+
+    if f is g:
+        return f.cov2(x_f, x_g)
+    if isinstance(f, AbstractProcess) and isinstance(g, AbstractProcess):
+        return cross_cov(f, g, x_f, x_g)
+    raise TypeError("the two processes must come from the same programme (same GPPP or same GPC)")
+
+
+def _vfe_factors(approx: VFE, fx: FiniteGP):
+    """(Luu, A, LB, √s): Luu = chol(Kuu + fz's noise), A = Luu⁻¹ Kuf / √s,
+    B = I + A Aᵀ = LB LBᵀ."""
+    fz, u = approx.fz, approx.fz.f
+    if not isinstance(fx.noise, DiagNoise):
+        raise TypeError("elbo/VFE requires diagonal observation noise")
+    Luu = _chol.cholesky_psd(fz.cov())
+    Kuf = _cross_cov_any(u, fz.x, fx.f, fx.x)
+    sqrt_s = torch.sqrt(_like(fx.noise.diag(len(fx)), Kuf))
+    A = _chol.solve_lower(Luu, Kuf) / sqrt_s[None, :]
+    m = A.shape[0]
+    B = torch.eye(m, dtype=A.dtype, device=A.device) + A @ A.T
+    LB = _chol.cholesky_psd(B)
+    return Luu, A, LB, sqrt_s
+
+
+def elbo(approx: VFE, fx: FiniteGP, y):
+    """The Titsias collapsed ELBO, a lower bound on `logpdf(fx, y)`:
+
+        log N(y; m, Qff + Σ) − ½ Σᵢ (Kffᵢᵢ − Qffᵢᵢ)/sᵢ,
+
+    in O(N M²) through the Woodbury and determinant identities."""
+    Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
+    n = len(fx)
+    b = (_like(y, A) - fx.mean()) / sqrt_s
+    c = _chol.solve_lower(LB, A @ b)
+    log_marginal = -0.5 * (
+        n * math.log(2.0 * math.pi)
+        + 2.0 * torch.sum(torch.log(sqrt_s))
+        + _chol.chol_logdet(LB)
+        + b @ b
+        - c @ c
+    )
+    # −½ Σᵢ (kffᵢᵢ − qffᵢᵢ)/sᵢ, with qffᵢᵢ/sᵢ = Σₘ A²[m, i]
+    kff_diag = fx.f.var(fx.x)
+    trace_term = -0.5 * (torch.sum(kff_diag / sqrt_s**2) - torch.sum(A * A))
+    return log_marginal + trace_term
+
+
+def elbo_fx(fx: FiniteGP, y, u: FiniteGP):
+    """`elbo(fx, y, u)`, the same as `elbo(VFE(u), fx, y)`."""
+    return elbo(VFE(u), fx, y)
+
+
+@frozen_dataclass(eq=False)
+class ApproxPosteriorGP:
+    """The VFE approximate posterior process (q(u) marginalised):
+
+        mean(x*)     = m(x*) + V*ᵀ c,                V* = Luu⁻¹ K(z, x*)
+        cov(x*, x*') = K** − V*ᵀ V*' + W*ᵀ W*',      W* = LB⁻¹ V*
+
+    with c = LB⁻ᵀ LB⁻¹ A b (`posterior_vfe`)."""
+
+    prior: object
+    z: object  # the inducing inputs (tagged or not)
+    Luu: torch.Tensor
+    LB: torch.Tensor
+    c: torch.Tensor
+
+    def _v(self, x):
+        return _chol.solve_lower(self.Luu, self.prior.cov2(self.z, x))
+
+    def mean(self, x):
+        return self.prior.mean(x) + self._v(x).T @ self.c
+
+    def cov(self, x):
+        V = self._v(x)
+        W = _chol.solve_lower(self.LB, V)
+        return self.prior.cov(x) - V.T @ V + W.T @ W
+
+    def cov2(self, x, x2):
+        V, V2 = self._v(x), self._v(x2)
+        W, W2 = _chol.solve_lower(self.LB, V), _chol.solve_lower(self.LB, V2)
+        return self.prior.cov2(x, x2) - V.T @ V2 + W.T @ W2
+
+    def var(self, x):
+        V = self._v(x)
+        W = _chol.solve_lower(self.LB, V)
+        return self.prior.var(x) - torch.sum(V * V, dim=0) + torch.sum(W * W, dim=0)
+
+    def var2(self, x, x2):
+        V, V2 = self._v(x), self._v(x2)
+        W, W2 = _chol.solve_lower(self.LB, V), _chol.solve_lower(self.LB, V2)
+        return self.prior.var2(x, x2) - torch.sum(V * V2, dim=0) + torch.sum(W * W2, dim=0)
+
+    def mean_and_cov(self, x):
+        return self.mean(x), self.cov(x)
+
+    def mean_and_var(self, x):
+        return self.mean(x), self.var(x)
+
+    def __call__(self, x, noise=None):
+        return FiniteGP(self, x, noise)
+
+
+def posterior_vfe(approx: VFE, fx: FiniteGP, y):
+    """The approximate posterior under the Titsias approximation: with
+    b = (y − m)/√s, it stores c = LB⁻ᵀ LB⁻¹ (A b), so mean(x*) = m* + V*ᵀ c."""
+    Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
+    b = (_like(y, A) - fx.mean()) / sqrt_s
+    c = _chol.solve_lower(LB, A @ b)
+    c = _chol.solve_lower(LB, c, trans=True)
+    return ApproxPosteriorGP(approx.fz.f, approx.fz.x, Luu, LB, c)
+
+
+@frozen_dataclass(eq=False)
+class SparseFiniteGP:
+    """An observation FiniteGP paired with an inducing-point FiniteGP.
+
+    `logpdf` of it is the `elbo`, `posterior` of it the VFE posterior, and
+    its `cov` raises rather than densify."""
+
+    fobs: FiniteGP
+    finducing: FiniteGP
+
+    def __len__(self):
+        return len(self.fobs)
+
+    def mean(self):
+        return self.fobs.mean()
+
+    def cov(self):
+        raise RuntimeError(
+            "The covariance matrix of a sparse GP can often be dense and can "
+            "cause the computer to run out of memory. If you are sure you "
+            "have enough memory, use `cov(f.fobs)`."
+        )
+
+    def mean_and_var(self):
+        return self.fobs.mean_and_var()
+
+    def var(self):
+        return self.fobs.var()
+
+
+def _sparse_logpdf(fxu: SparseFiniteGP, y):
+    """The ELBO of `y`, or of each column of a 2-D `y` (a loop: the blocked
+    path's Functions and panel loops do not go through `torch.func.vmap`)."""
+    approx = VFE(fxu.finducing)
+    y = torch.as_tensor(y)
+    if y.dim() == 2:
+        return torch.stack([elbo(approx, fxu.fobs, y[:, j]) for j in range(y.shape[1])])
+    return elbo(approx, fxu.fobs, y)
+
+
+def rand_sparse(generator, fxu: SparseFiniteGP, num_samples=None):
+    """Samples of a `SparseFiniteGP`: those of its observation FiniteGP."""
+    return rand(generator, fxu.fobs, num_samples)

@@ -1,13 +1,17 @@
 """Cholesky, triangular solves and the MvNormal logpdf (counterpart of
-`stheno_tpu/ops/chol.py:23-187`, `:268-288`), and the sampler
-`mvn_sample_chol`.
+`stheno_tpu/ops/chol.py:23-288`), and the sampler `mvn_sample_chol`.
 
 `cholesky_psd` routes a single large matrix on a CUDA device (N ≥ 4096), or
 any single matrix under `config.chol_backend("blocked")`, to the blocked
 factorisation of `ops/blocked_cholesky.py`, which reads tril(K) only.
 Everything else is symmetrised and goes to `torch.linalg.cholesky`, as the
-reference sends it to `lax.linalg.cholesky`.  The fused logpdf of the
-reference is off by default there and is not ported yet.
+reference sends it to `lax.linalg.cholesky`.
+
+`mvn_logpdf_psd` can route a single-vector logpdf to the fused form
+(`_MvnLogpdfFused`), whose backward is the closed form ½(ααᵀ − K⁻¹) with
+K⁻¹ built by the blocked triangular inverse (kernel 3 on its base blocks)
+and a blocked LAUUM.  As in the reference it is off by default
+(`LOGPDF_FUSED`); `config.logpdf_fused("auto" | "on")` scopes it in.
 """
 
 from __future__ import annotations
@@ -110,8 +114,67 @@ def mvn_logpdf_chol(y, mean, L):
     return -0.5 * (n * log_two_pi + chol_logdet(L) + quad)
 
 
+#: 'auto' takes the fused logpdf wherever the blocked Cholesky would be
+#: used; 'on' and 'off' force.  Off by default, as in the reference, whose
+#: fused path was the slower one on its TPU.
+LOGPDF_FUSED = "off"
+
+
+def _fused_forward(K, diff):
+    """(value, L, z) of log N(diff; 0, K): `cholesky_psd`'s factor (the
+    blocked one where the blocked route applies), then the blocked forward
+    substitution z = L⁻¹ diff."""
+    from stheno_tpu_torch.ops.blocked_cholesky import blocked_solve_lower
+
+    n = K.shape[-1]
+    L = cholesky_psd(K)
+    z = blocked_solve_lower(L, diff)
+    log_two_pi = math.log(2.0 * math.pi)
+    val = -0.5 * (n * log_two_pi + chol_logdet(L) + torch.dot(z, z))
+    return val, L, z
+
+
+class _MvnLogpdfFused(torch.autograd.Function):
+    """log N(diff; 0, K) for symmetric PSD K, with the closed-form gradient
+
+        ∂logpdf/∂K = ½ (α αᵀ − K⁻¹),   α = K⁻¹ diff,
+
+    in place of the reverse rule through the factorisation.  K⁻¹ is
+    L⁻ᵀ L⁻¹: the blocked triangular inverse (its base blocks on the active
+    base-case inverse, kernel 3 for f32) and a blocked LAUUM."""
+
+    @staticmethod
+    def forward(ctx, K, diff):
+        val, L, z = _fused_forward(K, diff)
+        ctx.save_for_backward(L, z)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        from stheno_tpu_torch.ops.blocked_cholesky import (
+            blocked_lauum,
+            blocked_solve_upper_T,
+            blocked_tri_inv_lower,
+        )
+
+        L, z = ctx.saved_tensors
+        alpha = blocked_solve_upper_T(L, z)
+        K_bar = None
+        if ctx.needs_input_grad[0]:
+            K_inv = blocked_lauum(blocked_tri_inv_lower(L, base=256))
+            K_bar = (0.5 * g) * (torch.outer(alpha, alpha) - K_inv)
+        return K_bar, -g * alpha
+
+
 def mvn_logpdf_psd(y, mean, K_sig):
-    """log N(y; mean, K_sig) straight from the covariance."""
+    """log N(y; mean, K_sig) straight from the covariance.  A single
+    vector `y` takes the fused logpdf under `config.logpdf_fused("on")`, or
+    under "auto" where the blocked route applies; everything else goes
+    through `cholesky_psd` and `mvn_logpdf_chol`."""
+    mode = _cfg.active_override("logpdf_fused", LOGPDF_FUSED)
+    fused = mode == "on" or (mode == "auto" and _use_blocked(K_sig))
+    if fused and y.dim() == mean.dim() == 1:
+        return _MvnLogpdfFused.apply(symmetrize(K_sig), y - mean)
     return mvn_logpdf_chol(y, mean, cholesky_psd(K_sig))
 
 

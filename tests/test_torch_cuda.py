@@ -187,3 +187,50 @@ def test_host_y_and_full_noise_move_to_the_card(cuda_device):
     (lp_cpu, m_cpu), (lp_gpu, m_gpu) = out.values()
     np.testing.assert_allclose(lp_gpu, lp_cpu, rtol=1e-4)
     np.testing.assert_allclose(m_gpu, m_cpu, rtol=0, atol=1e-4)
+
+
+def test_pseudo_point_step_at_4096_launches_the_kernels(cuda_device):
+    """The −ELBO of the pseudo-point programme at N = 4096 with 2048
+    inducing inputs per latent (a 4096² Kuu and B, so the blocked route):
+    four kernel-1 launches (Kuu's two same-input blocks and Kuf's two cross
+    blocks), kernels 2 and 3 launched, and value and gradient against f64 on
+    the card (1e-3 relative; 5e-3 of the gradient's largest component)."""
+    from stheno_tpu_torch import entry
+    from stheno_tpu_torch import params as P
+
+    data = entry.pseudo_points_data(4096, 2048, torch.float32, cuda_device, half_width=1024.0)
+    theta0, _ = P.init(entry.pseudo_points_spec(data[2]))
+    kern.reset_counters()
+    val, grad = entry.pseudo_points_step(theta0, data)
+    torch.cuda.synchronize()
+    counts = {k: c.total for k, c in kern.COUNTERS.items()}
+    assert counts["kernelmatrix"] == 4, counts
+    assert counts["chol_block"] > 0 and counts["tri_inv_block"] > 0, counts
+    val64, grad64 = entry.pseudo_points_step(theta0.double(), tuple(t.double() for t in data))
+    np.testing.assert_allclose(val.item(), val64.item(), rtol=1e-3)
+    err = ((grad.double() - grad64).abs().max() / grad64.abs().max()).item()
+    assert err <= 5e-3, err
+
+
+def test_fused_logpdf_at_4096_matches_the_default_route(cuda_device):
+    """An f32 logpdf at N = 4096 under `logpdf_fused("on")` against the
+    default route: value (1e-4 relative) and gradient (5e-3), with kernel 3
+    launched by the fused backward."""
+    x = torch.linspace(-5.0, 5.0, 4096, device=cuda_device)
+    y = torch.sin(x) + 0.2 * torch.cos(7 * x)
+
+    def value_and_grad():
+        v = torch.tensor(1.5, device=cuda_device, requires_grad=True)
+        noise = torch.tensor(0.1, device=cuda_device, requires_grad=True)
+        val = _se_nlml(x, y, v, noise)
+        kern.reset_counters()
+        grads = torch.autograd.grad(val, (v, noise))
+        torch.cuda.synchronize()
+        return val.item(), [g.item() for g in grads], kern.COUNTERS["tri_inv_block"].total
+
+    base_val, base_grad, _ = value_and_grad()
+    with stt.config.logpdf_fused("on"):
+        val, grad, tri_inv_in_backward = value_and_grad()
+    assert tri_inv_in_backward > 0
+    np.testing.assert_allclose(val, base_val, rtol=1e-4)
+    np.testing.assert_allclose(grad, base_grad, rtol=5e-3)

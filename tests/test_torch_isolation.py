@@ -17,7 +17,12 @@ import torch
 import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
 from stheno_tpu_torch import entry, markov, params, perf_probe
-from stheno_tpu_torch.convert import spec_from_numpy, theta_from_numpy
+from stheno_tpu_torch.convert import (
+    likelihood_from_numpy,
+    spec_from_numpy,
+    svgp_from_numpy,
+    theta_from_numpy,
+)
 from stheno_tpu_torch.cuda import _build
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -77,7 +82,8 @@ def test_forbidden_tells_the_jax_package_from_the_port():
 
 
 @pytest.mark.parametrize("name", ["markov", "perf_probe", "params", "inference/vi", "models/workloads",
-                                  "utils/testing", "entry", "convert"])
+                                  "utils/testing", "entry", "convert", "finite_gp", "ops/chol",
+                                  "inference/svgp", "inference/likelihoods", "inference/laplace"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -95,9 +101,14 @@ def test_the_new_modules_are_walked(name):
     lambda: entry.mauna_loa_spec(),
     lambda: entry.mauna_loa_fit(1),
     lambda: spec_from_numpy({"a": np.ones(())}),
+    lambda: entry.pseudo_points_data(),
+    lambda: entry.pseudo_points_fit(1),
+    lambda: svgp_from_numpy(type("Q", (), {"q_mu": np.zeros(2), "q_sqrt": np.eye(2)})(), None),
+    lambda: likelihood_from_numpy(stt.inference.BernoulliLikelihood()),
 ], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
         "markov_gp_logpdf", "sde_representation", "mauna_loa_data", "mauna_loa_spec",
-        "mauna_loa_fit", "spec_from_numpy"])
+        "mauna_loa_fit", "spec_from_numpy", "pseudo_points_data", "pseudo_points_fit",
+        "svgp_from_numpy", "likelihood_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -117,10 +128,18 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         ms = entry.mauna_loa_predict(unflatten(theta0), data, xp)
         ys = stt.rand(torch.Generator().manual_seed(0),
                       entry.build_gp(unflatten(theta0))(entry.mauna_loa_query(xp)), 2)
+        pp = entry.pseudo_points_data(2048, 256, torch.float32, device="cpu", half_width=192.0)
+        pp_theta, pp_unflatten = params.init(entry.pseudo_points_spec(pp[2]))
+        pp_val, pp_grad = entry.pseudo_points_step(pp_theta, pp)
+        pp_ms = entry.pseudo_points_predict(pp_unflatten(pp_theta), pp, xp)
+        with stt.config.logpdf_fused("on"):
+            fused_val, _ = step(theta)
     assert np.isfinite(val.item()) and all(np.isfinite(g.item()) for g in grad.values())
     assert m.shape == v.shape == (64,)
     assert np.isfinite(ml_val.item()) and bool(torch.isfinite(ml_grad).all())
     assert ms.mean.shape == (192,) and ys.shape == (192, 2)
+    assert np.isfinite(pp_val.item()) and bool(torch.isfinite(pp_grad).all())
+    assert pp_ms.mean.shape == (128,) and np.isfinite(fused_val.item())
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
         "kernelmatrix": 0, "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0}
 

@@ -1,0 +1,266 @@
+"""The port's pseudo-point path against the JAX package: the collapsed
+Titsias `elbo` with its gradient, `posterior_vfe`, `SparseFiniteGP`'s
+routing of `logpdf`, `posterior` and `rand`, and the interdomain form of
+the pseudo-point programme (inducing points in both latents of f3 = f1 + f2,
+`BlockData(f1 at z, f2 at z)`), on the `torch.linalg` route and on the
+blocked route (both packages scoped to it, with a backward panel of 256, so
+the f32 cases run the kernels' plain versions).
+
+The inputs are made with numpy from a seed (`entry.pseudo_points_data`) and
+fed to both packages.  Tolerances: f64 value and gradient to rtol 1e-10 (the
+gradient against its largest component); f32 to rtol 1e-4, a few hundred
+float32 roundings of sums of about a thousand terms."""
+
+from contextlib import ExitStack, contextmanager
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stheno_tpu
+import stheno_tpu as st
+import stheno_tpu_torch as stt
+from stheno_tpu import params as JP
+from stheno_tpu.finite_gp import _sparse_logpdf as j_sparse_logpdf
+from stheno_tpu.models.workloads import pseudo_points_model as j_model
+from stheno_tpu_torch import entry
+from stheno_tpu_torch import params as P
+from stheno_tpu_torch.finite_gp import rand_sparse
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+DTYPES = {"f64": (jnp.float64, torch.float64, 1e-10), "f32": (jnp.float32, torch.float32, 1e-4)}
+
+
+@contextmanager
+def _route(package, route):
+    """`package` (the JAX one or the port) on `route`: its library factor
+    ("torch"), or the blocked path with backward panels of 256."""
+    cfg = package.config
+    with ExitStack() as stack:
+        if route == "torch":
+            stack.enter_context(cfg.chol_backend("lax" if package is stheno_tpu else "torch"))
+        else:
+            stack.enter_context(cfg.chol_backend("blocked"))
+            stack.enter_context(cfg.bwd_params(block=256))
+        yield
+
+
+def _jax_spec(z):
+    pos = JP.positive
+    return dict(v1=pos(0.8), l1=pos(1.0), v2=pos(0.8), l2=pos(1.0), noise=pos(0.2), z=jnp.asarray(z))
+
+
+def _jax_objective(x, y):
+    """The example's −ELBO (`examples/gppp_and_pseudo_points.py:70-76`)."""
+
+    def neg_elbo(t):
+        f = j_model(t)
+        fx = f(st.GPPPInput("f3", x), t["noise"])
+        u = f(st.BlockData(st.GPPPInput("f1", t["z"]), st.GPPPInput("f2", t["z"])), 1e-6)
+        return -st.elbo(st.VFE(u), fx, y)
+
+    return neg_elbo
+
+
+def _data(n, m, dtype, half_width=None, seed=3):
+    """The entry's data; by default z is spaced 1.5 apart, so Kuu (unit
+    lengthscales) is well conditioned in f32 too."""
+    half_width = 0.75 * m if half_width is None else half_width
+    return entry.pseudo_points_data(n, m, dtype, "cpu", seed=seed, half_width=half_width)
+
+
+def _assert_grad_close(got, want, rtol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+def test_entry_neg_elbo_matches_the_example_objective():
+    """`entry.pseudo_points_step` at the example's size (N = 600, 24
+    inducing inputs per latent on [−8, 8]) against the JAX example's −ELBO
+    and its gradient, at θ₀ and at a point away from it, f64, rtol 1e-10."""
+    data = _data(600, 24, torch.float64, half_width=8.0, seed=7)
+    x, y, z = (a.numpy() for a in data)
+    jth, junf = JP.init(_jax_spec(z))
+    theta0, _ = P.init(entry.pseudo_points_spec(data[2]))
+    np.testing.assert_array_equal(theta0.numpy(), np.asarray(jth))
+    vg = jax.jit(jax.value_and_grad(lambda th: _jax_objective(jnp.asarray(x), jnp.asarray(y))(junf(th))))
+    for shift in (0.0, 0.15):
+        jval, jgrad = vg(jth + shift)
+        val, grad = entry.pseudo_points_step(theta0 + shift, data)
+        np.testing.assert_allclose(val.item(), float(jval), rtol=1e-10)
+        _assert_grad_close(grad.numpy(), jgrad, 1e-10)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("route", ["torch", "blocked"])
+def test_elbo_and_gradient_match_reference(route, dtype):
+    """The interdomain −ELBO and its gradient in θ = (l1, l2, noise, v1,
+    v2, z).  On the blocked route M = 2·256 inducing points give a
+    two-panel Kuu and B (kernels 2 and 3's plain versions in f32)."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    m = 256 if route == "blocked" else 20
+    data = _data(600, m, tdt)
+    x, y, z = (jnp.asarray(a.numpy()) for a in data)
+    jth, junf = JP.init(_jax_spec(z))
+    jth = jth.astype(jdt)
+    theta0, _ = P.init(entry.pseudo_points_spec(data[2]))
+    with _route(stheno_tpu, route):
+        jval, jgrad = jax.jit(jax.value_and_grad(lambda th: _jax_objective(x, y)(junf(th))))(jth)
+    with _route(stt, route):
+        val, grad = entry.pseudo_points_step(theta0, data)
+    assert val.dtype == tdt
+    np.testing.assert_allclose(val.item(), float(jval), rtol=rtol)
+    _assert_grad_close(grad.numpy(), jgrad, rtol if dtype == "f64" else 5e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("route", ["torch", "blocked"])
+def test_posterior_vfe_matches_reference(route, dtype):
+    """Marginals of the approximate posterior at BlockData(f1, f3): observe
+    f3, read off the latent f1, with the inducing points in both latents."""
+    jdt, tdt, rtol = DTYPES[dtype]
+    m = 256 if route == "blocked" else 20
+    data = _data(600, m, tdt)
+    x, y, z = (jnp.asarray(a.numpy()) for a in data)
+    xp = np.linspace(-0.7 * m, 0.7 * m, 37)
+    jt = {k: jnp.asarray(v, dtype=jdt) for k, v in dict(v1=1.1, l1=1.3, v2=0.5, l2=0.6, noise=0.1).items()}
+    tt = {k: torch.tensor(float(v), dtype=tdt) for k, v in jt.items()}
+    jt["z"], tt["z"] = z, data[2]
+    with _route(stheno_tpu, route):
+        f = j_model(jt)
+        fx = f(st.GPPPInput("f3", x), jt["noise"])
+        u = f(st.BlockData(st.GPPPInput("f1", z), st.GPPPInput("f2", z)), 1e-6)
+        q = st.BlockData(st.GPPPInput("f1", jnp.asarray(xp, dtype=jdt)),
+                         st.GPPPInput("f3", jnp.asarray(xp, dtype=jdt)))
+        jms = jax.jit(lambda: st.marginals(st.posterior_vfe(st.VFE(u), fx, y)(q, 1e-9)))()
+    with _route(stt, route):
+        ms = entry.pseudo_points_predict(tt, data, torch.as_tensor(xp, dtype=tdt), noise=1e-9)
+    atol = 1e-10 if dtype == "f64" else 1e-4
+    np.testing.assert_allclose(ms.mean.numpy(), np.asarray(jms.mean), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(ms.var.numpy(), np.asarray(jms.var), rtol=rtol, atol=atol)
+
+
+def _simple_pair():
+    """One GP on each side, SE over Matern32, with its inputs and data."""
+    rng = np.random.default_rng(11)
+    x = np.sort(rng.uniform(0, 4, 40))
+    z = np.linspace(0, 4, 9)
+    y = np.sin(2 * x) + 0.2 * rng.normal(size=40)
+    with st.GPC():
+        jf = st.GP(1.3 * st.with_lengthscale(st.Matern32Kernel(), 0.7))
+    with stt.GPC():
+        tf = stt.GP(1.3 * stt.with_lengthscale(stt.Matern32Kernel(), 0.7))
+    return jf, tf, x, z, y
+
+
+def test_sparse_finite_gp_routing_matches_reference():
+    """`logpdf` of a SparseFiniteGP is the ELBO (per column of a 2-D y, a
+    loop where the reference vmaps), its `posterior` and the
+    `posterior(VFE(u), fx, y)` form are the VFE posterior, `elbo_fx` is
+    `elbo`, and its `cov` raises."""
+    jf, tf, x, z, y = _simple_pair()
+    Y = np.stack([y, np.cos(x), -y], axis=1)
+    xq = np.linspace(0.2, 3.8, 11)
+    jfx, jfz = jf(jnp.asarray(x), 0.1), jf(jnp.asarray(z), 1e-9)
+    tx, tz, txq = (torch.as_tensor(a) for a in (x, z, xq))
+    tfx, tfz = tf(tx, 0.1), tf(tz, 1e-9)
+    jsp, tsp = st.SparseFiniteGP(jfx, jfz), stt.SparseFiniteGP(tfx, tfz)
+
+    @jax.jit
+    def reference(yy, YY, q):
+        post = st.posterior(jsp, yy)
+        return (st.logpdf(jsp, yy), j_sparse_logpdf(jsp, YY), post.mean(q), post.cov(q),
+                post.cov2(q, q[:4]))
+
+    jlp, jcols, jm, jcov, jcov2 = reference(jnp.asarray(y), jnp.asarray(Y), jnp.asarray(xq))
+    np.testing.assert_allclose(stt.logpdf(tsp, y).item(), float(jlp), rtol=1e-10)
+    np.testing.assert_allclose(stt.logpdf(tsp, y).item(), stt.elbo(stt.VFE(tfz), tfx, y).item(),
+                               rtol=1e-14)
+    np.testing.assert_allclose(stt.elbo_fx(tfx, y, tfz).item(), stt.logpdf(tsp, y).item(), rtol=1e-14)
+    cols = stt.logpdf(tsp, Y)
+    assert cols.shape == (3,)
+    np.testing.assert_allclose(cols.numpy(), np.asarray(jcols), rtol=1e-10)
+    for post in (stt.posterior(tsp, y), stt.posterior(stt.VFE(tfz), tfx, y),
+                 stt.posterior_vfe(stt.VFE(tfz), tfx, y)):
+        assert isinstance(post, stt.ApproxPosteriorGP)
+        np.testing.assert_allclose(post.mean(txq).numpy(), np.asarray(jm), rtol=1e-10, atol=1e-12)
+    tpost = stt.posterior(tsp, y)
+    np.testing.assert_allclose(tpost.cov(txq).numpy(), np.asarray(jcov), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(tpost.cov2(txq, txq[:4]).numpy(), np.asarray(jcov2),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(tpost.var2(txq, txq).numpy(), tpost.var(txq).numpy(), rtol=1e-12)
+    assert len(tsp) == 40
+    m, v = tsp.mean_and_var()
+    np.testing.assert_allclose(v.numpy(), tfx.var().numpy())
+    with pytest.raises(RuntimeError, match="sparse GP"):
+        tsp.cov()
+
+
+def test_elbo_bounds_and_errors():
+    """The ELBO lies below the exact logpdf and reaches it with z = x; it
+    needs diagonal noise (TypeError otherwise) and pseudo-points of the
+    same programme (TypeError otherwise)."""
+    _, tf, x, z, y = _simple_pair()
+    tx, tz = torch.as_tensor(x), torch.as_tensor(z)
+    fx = tf(tx, 0.1)
+    lp = stt.logpdf(fx, y).item()
+    assert stt.elbo(stt.VFE(tf(tz, 1e-9)), fx, y).item() < lp
+    np.testing.assert_allclose(stt.elbo(stt.VFE(tf(tx, 1e-9)), fx, y).item(), lp, rtol=1e-6)
+    with pytest.raises(TypeError, match="diagonal"):
+        stt.elbo(stt.VFE(tf(tz, 1e-9)), tf(tx, 0.1 * torch.eye(40, dtype=torch.float64)), y)
+    with stt.GPC():
+        other = stt.GP(stt.SEKernel())
+    prog = entry.build_pseudo_points(dict(v1=1.0, l1=1.0, v2=1.0, l2=1.0))
+    with pytest.raises(TypeError, match="same programme"):
+        stt.elbo(stt.VFE(other(tz, 1e-9)), prog(stt.GPPPInput("f3", tx), 0.1), y)
+
+
+def test_interdomain_bound_tightens_and_posterior_crosses_processes():
+    """The reference's interdomain test on the port: inducing points in f1
+    alone bound the logpdf loosely; dense ones in f1 and f2 come within
+    0.2 of it, and the posterior answers at f1 and f3."""
+    rng = np.random.default_rng(5)
+    t = dict(v1=1.0, l1=1.0, v2=1.0, l2=1.0)
+    f = entry.build_pseudo_points(t)
+    x = torch.as_tensor(rng.uniform(-3, 3, 30))
+    fx = f(stt.GPPPInput("f3", x), 0.2)
+    y = stt.rand(torch.Generator().manual_seed(0), fx)
+    lp = stt.logpdf(fx, y).item()
+    el = stt.elbo(stt.VFE(f(stt.GPPPInput("f1", torch.linspace(-3, 3, 10, dtype=torch.float64)), 1e-9)),
+                  fx, y).item()
+    zd = torch.linspace(-3.2, 3.2, 40, dtype=torch.float64)
+    u = f(stt.BlockData(stt.GPPPInput("f1", zd), stt.GPPPInput("f2", zd)), 1e-9)
+    el_both = stt.elbo(stt.VFE(u), fx, y).item()
+    assert el < el_both < lp and lp - el_both < 0.2
+    ap = stt.posterior_vfe(stt.VFE(u), fx, y)
+    xp = torch.linspace(-3, 3, 8, dtype=torch.float64)
+    assert bool(torch.isfinite(ap.mean(stt.GPPPInput("f1", xp))).all())
+    assert bool(torch.isfinite(ap.mean(stt.GPPPInput("f3", xp))).all())
+
+
+def test_rand_sparse_is_the_observation_law():
+    """`rand_sparse` (and `rand` of a SparseFiniteGP) sample the
+    observation FiniteGP: 400 columns whitened by its factor have mean 0
+    and variance 1 within 5σ."""
+    _, tf, x, z, _ = _simple_pair()
+    tx, tz = torch.as_tensor(x), torch.as_tensor(z)
+    sp = stt.SparseFiniteGP(tf(tx, 0.1), tf(tz, 1e-9))
+    gen = torch.Generator().manual_seed(4)
+    ys = rand_sparse(gen, sp, 400)
+    assert ys.shape == (40, 400) and stt.rand(gen, sp).shape == (40,)
+    L = torch.linalg.cholesky(sp.fobs.cov())
+    w = torch.linalg.solve_triangular(L, ys - sp.mean()[:, None], upper=False)
+    n = w.numel()
+    assert abs(w.mean().item()) < 5 / np.sqrt(n)
+    assert abs(w.var(unbiased=False).item() - 1) < 5 * np.sqrt(2 / n)
+
+
+def test_fit_improves_the_bound_at_the_example_size():
+    """Eight Adam steps of `entry.pseudo_points_fit` on the example's size
+    lower the −ELBO and keep z free."""
+    data = _data(600, 24, torch.float64, half_width=8.0, seed=7)
+    res = entry.pseudo_points_fit(8, 2e-2, data=data)
+    assert res.losses[-1] < res.losses[0]
+    assert not torch.equal(res.params["z"], data[2])
