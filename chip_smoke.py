@@ -56,7 +56,22 @@ the CUDA toolkit.  In one run it
    and a Bernoulli minibatch step (|B| = 4096) against f64, then 3 Adam
    steps; (f) Laplace with Bernoulli labels at N = 8192 (20 Newton steps,
    each factoring an 8192² B) against f64; (g) the path's timings, a
-   profiled −ELBO step and kernel 1 at 2048 × 131072.
+   profiled −ELBO step and kernel 1 at 2048 × 131072;
+10. runs the samplers' path (BASELINE #5 and the SMC example), every
+   log-density evaluation a `torch.func.vmap` over chains or particles
+   through one batched launch of kernel 1: (a) the batched kernel 1 against
+   its batched plain version at (16, 2048²) f32 SE and (512, 50²) f64 SE
+   and Matern32; (b) the vmapped log-density of the NUTS model at N = 2048
+   over 16 jittered positions, f32 against f64 and against a loop over the
+   chains, with one batched kernel-1 launch and no launch of kernels 2 and
+   3; (c) the example's NUTS at its own size (N = 60, f64, 4 chains,
+   300 + 400) with its assertions and R̂ ≤ 1.05; (d) NUTS at full width
+   (N = 2048, f32, 16 chains, max_depth 8): warmup, then a timed sampling
+   run from its state (ESS/s, draws/s, leapfrogs per transition, the
+   gradient's time, peak memory, a profiled transition), R̂, divergences
+   and the truth inside the posterior, and a run cut into two resumed
+   halves against one run, bit for bit; (e) SMC (the example: N = 50, 512
+   particles, f64) for the SE and Matern32 models with its assertions.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -111,6 +126,16 @@ PP_VAL_TOL = 1e-3  # the full-width f32 −ELBO's limit against f64 (relative)
 #: the SVGP bound at the optimal q against the collapsed ELBO (relative):
 #: f64 holds the identity to rounding; f32 to the value's own limit
 PP_SVGP_TOL = {"float64": 1e-8, "float32": PP_VAL_TOL}
+#: the samplers' path: the NUTS example's own size (N, chains, warmup,
+#: samples, f64) and the full width (N, chains, max_depth; warmup and
+#: samples cut from the bench's 300 + 500 to fit the phase's time: the
+#: warmup's first 54 iterations run at a unit mass matrix, where a
+#: transition takes 50-190 batched evaluations of about 44 ms each)
+NUTS_SMALL = (60, 4, 300, 400)
+NUTS_FULL = (2048, 16, 8)
+NUTS_FULL_WARMUP, NUTS_FULL_SAMPLES = 60, 100
+NUTS_SEED = 11
+SMC_PARTICLES = 512
 PROFILE_KINDS = (
     ("kernelmatrix", ("km_kernel",)),
     ("chol_block", ("chol_block_kernel",)),
@@ -620,6 +645,226 @@ def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
     del data, data64, sub_data, params, params64, x_sub, y_sub
     torch.cuda.empty_cache()
     return step_counts, cross
+
+
+def samplers_path(torch, dev, card):
+    """Phase 10: the samplers' path (BASELINE #5 and the SMC example).
+    Returns the launch counts of the full-width sampling run, those of the
+    SMC run, and the batched kernel 1's row."""
+    import numpy as np
+
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch import entry as E
+    from stheno_tpu_torch.cuda.kernelmatrix import kernelmatrix_batched_forward, kernelmatrix_plain
+    from stheno_tpu_torch.inference import (
+        effective_sample_size, nuts_warmup, potential_scale_reduction, run_nuts, warmup_result)
+    from stheno_tpu_torch.inference.hmc import generator, nuts_kernel
+
+    f32, f64 = torch.float32, torch.float64
+    n_full, chains, max_depth = NUTS_FULL
+    gen = torch.Generator(device="cpu").manual_seed(10)
+
+    # (a) the batched kernel 1 at the path's shapes: 16 chains' lengthscales
+    # on the full-width x, and 512 particles' on the SMC example's x
+    data = E.nuts_data(n_full, f32, dev)
+    ell = torch.exp(0.3 * torch.randn(chains, generator=gen, dtype=f64)).to(dev)
+    xb = (data[0][None, :, None].double() / ell[:, None, None]).to(f32).contiguous()
+    vb = torch.exp(0.3 * torch.randn(chains, generator=gen, dtype=f64)).to(dev, f32)
+    smc_x = E.smc_data(50, f64, dev)[0]
+    ell_p = torch.exp(torch.randn(SMC_PARTICLES, generator=gen, dtype=f64)).to(dev)
+    xp = (smc_x[None, :, None] / ell_p[:, None, None]).contiguous()
+    vp = torch.exp(torch.randn(SMC_PARTICLES, generator=gen, dtype=f64)).to(dev)
+    checks, rows = [], {}
+    for label, kind, x, v in (("nuts", "se", xb, vb), ("smc", "se", xp, vp),
+                              ("smc", "matern32", xp, vp)):
+        K = kernelmatrix_batched_forward(x, None, kind, v)
+        Kp = kernelmatrix_plain(x, None, kind, v)
+        err = (K - Kp).abs().max().item()
+        diag_ok = bool((K.diagonal(dim1=-2, dim2=-1) == v[:, None]).all())
+        c, n, d = x.shape
+        size = x.element_size()
+        b_ms, b_by = bound((c * n * d + c + c * n * n) * size, c * n * n * 12)
+        row = {"kind": kind, "shape": f"batched same-input ({c}, {n}, {n}) D={d} {str(x.dtype)[6:]}",
+               "max_abs_err": err, "diag_exact": diag_ok, "bound_ms": b_ms, "bound_by": b_by,
+               "ms": event_ms(lambda: kernelmatrix_batched_forward(x, None, kind, v), reps=20),
+               "plain_ms": event_ms(lambda: kernelmatrix_plain(x, None, kind, v), reps=3)}
+        checks.append(row)
+        rows.setdefault(label, row)
+        require(err <= KM_TOL and diag_ok,
+                f"batched kernelmatrix {row['shape']} {kind}: max abs err {err} > {KM_TOL} "
+                "or diagonal not exact")
+        del K, Kp
+    emit({"check": "kernelmatrix_batched", "tolerance_abs": KM_TOL, "cases": checks, "card": card})
+
+    # (b) the vmapped log-density at full width: f32 against f64 and
+    # against a loop over the chains; one batched kernel-1 launch a forward
+    fn, theta0, unflatten = E.nuts_logdensity(data)
+    data64 = tuple(t.double() for t in data)
+    fn64, _, _ = E.nuts_logdensity(data64)
+    thetas = theta0[None, :] + 0.3 * torch.randn(chains, 3, generator=gen).to(dev)
+    vg = torch.func.vmap(torch.func.grad_and_value(fn))
+    kern.reset_counters()
+    grad, val = vg(thetas)
+    torch.cuda.synchronize()
+    eval_counts, eval_shapes = counts_now(kern)
+    emit({"samplers_eval_launches": eval_counts, "samplers_eval_launches_by_shape": eval_shapes})
+    require(eval_counts["kernelmatrix_batched"] == 1 and eval_counts["kernelmatrix"] == 0,
+            f"the vmapped log-density did not launch kernel 1 once, batched: {eval_counts}")
+    require(eval_counts["chol_block"] == 0 and eval_counts["tri_inv_block"] == 0,
+            f"the vmapped log-density launched kernel 2 or 3: {eval_counts}")
+    grad64, val64 = torch.func.vmap(torch.func.grad_and_value(fn64))(thetas.double())
+    val_rel = ((val.double() - val64).abs() / val64.abs()).max().item()
+    grad_rel = ((grad.double() - grad64).abs().amax(dim=1) / grad64.abs().amax(dim=1)).max().item()
+    loop_val, loop_grad = [], []
+    for c in range(chains):
+        th = thetas[c].clone().requires_grad_(True)
+        v = fn(th)
+        loop_val.append(v.detach())
+        loop_grad.append(torch.autograd.grad(v, th)[0])
+    loop_val, loop_grad = torch.stack(loop_val), torch.stack(loop_grad)
+    loop_val_rel = ((val - loop_val).abs() / loop_val.abs()).max().item()
+    loop_grad_rel = ((grad - loop_grad).abs().amax(dim=1) / loop_grad.abs().amax(dim=1)).max().item()
+    emit({"samplers_logdensity": {"n": n_full, "chains": chains, "value_rel_err_f64": val_rel,
+                                  "grad_rel_err_f64": grad_rel, "value_rel_err_loop": loop_val_rel,
+                                  "grad_rel_err_loop": loop_grad_rel}})
+    require(val_rel <= 1e-4, f"vmapped log-density f32 vs f64: value rel err {val_rel} > 1e-4")
+    require(grad_rel <= 5e-3, f"vmapped log-density f32 vs f64: gradient err {grad_rel} > 5e-3")
+    # the batched factor and the loop's single ones differ in f32 rounding
+    require(loop_val_rel <= 1e-5, f"vmapped vs loop: value rel err {loop_val_rel} > 1e-5")
+    require(loop_grad_rel <= 1e-3, f"vmapped vs loop: gradient err {loop_grad_rel} > 1e-3")
+    grad_ms = host_ms(lambda: vg(thetas), reps=5)
+    del grad64, val64, loop_val, loop_grad
+
+    # (c) the example at its own size, with its assertions
+    n_s, chains_s, warm_s, samp_s = NUTS_SMALL
+    data_s = E.nuts_data(n_s, f64, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = E.nuts_run(warm_s, samp_s, chains_s, data=data_s, seed=NUTS_SEED)
+    torch.cuda.synchronize()
+    ex_s = time.perf_counter() - t0
+    ex_post = {k: v.cpu().numpy().ravel() for k, v in ex.params.items()}
+    ex_ess = [effective_sample_size(ex.theta[..., i]).item() for i in range(3)]
+    ex_rhat = potential_scale_reduction(ex.theta).max().item()
+    ex_div = ex.info.diverging.double().mean().item()
+    emit({"nuts_example": {
+        "n": n_s, "chains": chains_s, "warmup": warm_s, "samples": samp_s, "dtype": "float64",
+        "seconds": ex_s, "ess": ex_ess, "ess_per_s": sum(ex_ess) / ex_s, "rhat_max": ex_rhat,
+        "divergence_rate": ex_div, "accept_prob": ex.info.accept_prob.mean().item(),
+        "evals_per_transition": ex.info.num_evals.double().mean().item(),
+        "means": {k: float(v.mean()) for k, v in ex_post.items()},
+        "q02_q98": {k: np.quantile(v, [0.02, 0.98]).tolist() for k, v in ex_post.items()}}})
+    for k in ("l", "noise"):
+        lo, hi = np.quantile(ex_post[k], [0.02, 0.98])
+        require(lo < E.NUTS_TRUTH[k] < hi, f"NUTS example: true {k} outside the 2-98% quantiles")
+    require(ex_div < 0.05, f"NUTS example: divergence rate {ex_div} >= 0.05")
+    require(ex_rhat <= 1.05, f"NUTS example: max split-R-hat {ex_rhat} > 1.05")
+
+    # (d) full width: warmup, then a timed sampling-only run from its state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = nuts_warmup(NUTS_SEED, fn, theta0, num_warmup=NUTS_FULL_WARMUP, num_chains=chains,
+                       max_depth=max_depth)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    state = warmup_result(warm)
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    theta_s, info, final = run_nuts(NUTS_SEED, fn, theta0, num_samples=NUTS_FULL_SAMPLES,
+                                    num_chains=chains, max_depth=max_depth, resume_state=state,
+                                    return_state=True)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    run_counts, run_shapes = counts_now(kern)
+    evals = int(info.num_evals[0].sum().item())
+    require(run_counts["kernelmatrix_batched"] == evals and run_counts["kernelmatrix"] == 0,
+            f"the sampling run's {evals} evaluations did not each launch kernel 1 once, batched: "
+            f"{run_counts}")
+    require(run_counts["chol_block"] == 0 and run_counts["tri_inv_block"] == 0,
+            f"the sampling run launched kernel 2 or 3: {run_counts}")
+    ess = [effective_sample_size(theta_s[..., i]).item() for i in range(3)]
+    rhat = potential_scale_reduction(theta_s).max().item()
+    div = info.diverging.double().mean().item()
+    post = {k: v.cpu().numpy().ravel() for k, v in E.nuts_params(theta_s, unflatten).items()}
+
+    # one profiled transition from the run's final state
+    step = nuts_kernel(fn, max_depth)
+    with torch.no_grad():
+        prof = profile_ms(lambda: step(generator(NUTS_SEED, 9, 0, dev), final.q, final.logp,
+                                       final.grad, final.eps, final.inv_mass))
+    full = {"n": n_full, "chains": chains, "max_depth": max_depth, "dtype": "float32",
+            "warmup": NUTS_FULL_WARMUP, "samples": NUTS_FULL_SAMPLES, "warmup_s": warmup_s,
+            "sampling_s": sample_s, "ess": ess, "nuts_ess_per_s": sum(ess) / sample_s,
+            "draws_per_s": chains * NUTS_FULL_SAMPLES / sample_s,
+            "evals_per_transition": evals / NUTS_FULL_SAMPLES,
+            "leaves_per_transition": info.num_leaves.double().mean().item(),
+            "tree_depth": info.tree_depth.double().mean().item(),
+            "nuts_grad_ms": grad_ms, "ms_per_eval": sample_s * 1e3 / evals,
+            "peak_gib": peak_gib, "divergence_rate": div, "rhat_max": rhat,
+            "accept_prob": info.accept_prob.mean().item(),
+            "step_size": info.step_size[:, 0].cpu().tolist(),
+            "q01_q99": {k: np.quantile(v, [0.01, 0.99]).tolist() for k, v in post.items()},
+            "launches": run_counts, "card": card}
+    emit({"nuts_full": full})
+    emit({"profile_nuts_transition": prof})
+    require(rhat <= 1.05, f"NUTS full width: max split-R-hat {rhat} > 1.05")
+    require(div < 0.05, f"NUTS full width: divergence rate {div} >= 0.05")
+    for k in ("v", "l", "noise"):
+        lo, hi = np.quantile(post[k], [0.01, 0.99])
+        require(lo < E.NUTS_TRUTH[k] < hi, f"NUTS full width: true {k} outside the pooled 1-99% quantiles")
+
+    # resume: one run of 6 draws against two resumed halves of 3, bit for bit
+    whole, _ = run_nuts(NUTS_SEED, fn, theta0, num_samples=6, num_chains=chains,
+                        max_depth=max_depth, resume_state=state, check_rhat=False)
+    first, _, mid = run_nuts(NUTS_SEED, fn, theta0, num_samples=3, num_chains=chains,
+                             max_depth=max_depth, resume_state=state, return_state=True,
+                             check_rhat=False)
+    second, _ = run_nuts(NUTS_SEED, fn, theta0, num_samples=3, num_chains=chains,
+                         max_depth=max_depth, resume_state=mid, sample_offset=3, check_rhat=False)
+    require(torch.equal(whole, torch.cat([first, second], dim=1)),
+            "NUTS full width: the resumed halves differ from the uninterrupted run")
+    emit({"nuts_resume_bit_identical": True, "draws": 6, "chains": chains})
+    del data, data64, theta_s, info
+
+    # (e) SMC: the example's two models, its assertions
+    smc_data = E.smc_data(50, f64, dev)
+    smc, smc_counts = {}, None
+    for name, build in E.SMC_BUILDS.items():
+        kern.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = E.smc_run(build, smc_data, num_particles=SMC_PARTICLES)
+        torch.cuda.synchronize()
+        med = np.median(np.exp(res.particles.cpu().numpy()), axis=0)
+        smc[name] = {"log_evidence": res.log_evidence.item(), "stages": int(res.num_stages),
+                     "seconds": time.perf_counter() - t0, "median_v_l_noise": med.tolist()}
+        if smc_counts is None:
+            smc_counts, _ = counts_now(kern)
+    emit({"smc": smc, "launches_se": smc_counts})
+    require(smc_counts["kernelmatrix_batched"] > 0 and smc_counts["kernelmatrix"] == 0,
+            f"SMC did not go through the batched kernel 1: {smc_counts}")
+    require(smc["SE"]["log_evidence"] > smc["Matern32"]["log_evidence"],
+            "SMC: the evidence does not favour the generating model (SE)")
+    med = smc["SE"]["median_v_l_noise"]
+    require(0.4 < med[1] < 3.5, f"SMC: median l {med[1]} outside (0.4, 3.5)")
+    require(med[2] < 0.5, f"SMC: median noise {med[2]} >= 0.5")
+
+    row = {"name": "kernelmatrix_batched", "route": "cuda",
+           "source": "stheno_tpu_torch/cuda/csrc/kernelmatrix.cu",
+           "replaces": "stheno_tpu/experimental/pallas/kernelmatrix.py:101",
+           "launches": run_counts["kernelmatrix_batched"],
+           "max_abs_err": max(c["max_abs_err"] for c in checks),
+           "ms": rows["nuts"]["ms"], "plain_ms": rows["nuts"]["plain_ms"],
+           "bound_ms": rows["nuts"]["bound_ms"], "bound_by": rows["nuts"]["bound_by"],
+           "library_ms": None, "shape": rows["nuts"]["shape"],
+           "path": "NUTS at full width (kernel 1 with a grid dimension over the vmapped chains)",
+           "launches_per_eval": run_counts["kernelmatrix_batched"] / evals,
+           "launches_smc_se": smc_counts["kernelmatrix_batched"], "smc_shape": rows["smc"]}
+    torch.cuda.empty_cache()
+    return run_counts, smc_counts, row
 
 
 def main():
@@ -1352,6 +1597,14 @@ def main():
         row["launches_pseudo_point_step"] = pp_counts[row["name"]]
     kernels[0]["pseudo_point_cross"] = pp_cross
     kernels[0]["max_abs_err_pseudo_points"] = km_err_pp
+
+    # ---- 10. the samplers' path (BASELINE #5, SMC) ------------------------------
+    sampler_counts, smc_counts, batched_row = samplers_path(torch, dev, card)
+    for row in kernels:
+        row["launches_samplers"] = sampler_counts[row["name"]]
+        row["launches_smc"] = smc_counts[row["name"]]
+    batched_row["launches_step"] = step_counts["kernelmatrix_batched"]
+    kernels.insert(1, batched_row)
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

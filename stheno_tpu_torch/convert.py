@@ -1,8 +1,9 @@
 """Carry a GP programme's numbers across from numpy (or the JAX package, by
 way of `np.asarray`) into tensors, and pick the device of an entry point:
 hyperparameter trees (`theta_from_numpy`), parameter specs
-(`spec_from_numpy`), SVGP variational states (`svgp_from_numpy`) and
-likelihoods (`likelihood_from_numpy`)."""
+(`spec_from_numpy`), SVGP variational states (`svgp_from_numpy`),
+likelihoods (`likelihood_from_numpy`), and the samplers' states
+(`chain_state_from_numpy`, `warmup_state_from_numpy`)."""
 
 from __future__ import annotations
 
@@ -119,3 +120,39 @@ def likelihood_from_numpy(lik, dtype=None, device="cuda"):
             v = v.to(dtype) if dtype is not None else v
         kwargs[fld.name] = v
     return cls(**kwargs)
+
+
+def _tensors(fields, dtype, device):
+    dev = resolve_device(device)
+
+    def tensor(v):
+        t = torch.tensor(np.asarray(v), device=dev)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    return [tensor(v) for v in fields]
+
+
+def chain_state_from_numpy(state, dtype=None, device="cuda"):
+    """The port's `ChainState` from the fields `q`, `logp`, `grad`, `eps`,
+    `inv_mass` of `state` (the JAX package's `ChainState`, or anything
+    holding those arrays), read with `np.asarray` onto `device` and cast to
+    `dtype` when given: sampling in the port can go on from a warmup the
+    reference adapted."""
+    from stheno_tpu_torch.inference.hmc import ChainState
+
+    return ChainState(*_tensors([getattr(state, f) for f in ChainState._fields], dtype, device))
+
+
+def warmup_state_from_numpy(state, dtype=None, device="cuda"):
+    """The port's `WarmupState` from the JAX package's (its `q`, `logp`,
+    `grad`, the dual-averaging state `da`, the Welford state `wf` and
+    `inv_mass`), read with `np.asarray` onto `device`, cast to `dtype` when
+    given."""
+    from stheno_tpu_torch.inference.hmc import DualAveragingState, WarmupState, WelfordState
+
+    da = DualAveragingState(*_tensors([getattr(state.da, f) for f in DualAveragingState._fields],
+                                      dtype, device))
+    wf = WelfordState(*_tensors([getattr(state.wf, f) for f in WelfordState._fields], dtype, device))
+    q, logp, grad, inv_mass = _tensors([state.q, state.logp, state.grad, state.inv_mass], dtype,
+                                       device)
+    return WarmupState(q, logp, grad, da, wf, inv_mass)

@@ -17,6 +17,16 @@
 // as stheno_tpu/ops/pairwise.py:56-62), the Matern distance is
 // sqrt(max(sq, eps^2)) masked to 0 where sq == 0, and same-input calls
 // write the diagonal as exactly var * g(0) = var.  Ragged N and M are masked.
+//
+// Batched launch: a grid dimension over a batch of C independent matrices,
+// out[b] = var[b] * g(|x[b]_i - y[b]_j|^2), with per-batch element strides
+// for x, y and var (0 for an operand shared by the batch, which the caller
+// passes as an expanded view, never a copy).  It is what jax.vmap does to
+// the pallas_call (a grid dimension for the batch), and what
+// torch.func.vmap of the port's log-density asks for: one launch for all
+// chains or particles.  Its bound is the C*N*M write.  The unbatched entry
+// points are the batched kernel with C = 1 and zero strides, so their
+// arithmetic, and their output, is unchanged.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -62,11 +72,16 @@ template <typename T, int KIND, bool D1>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 km_kernel(const T* __restrict__ x, const T* __restrict__ y,
           const T* __restrict__ var, T* __restrict__ out,
-          int n, int m, int d, int same) {
+          int n, int m, int d, int same,
+          long long sx, long long sy, long long sv) {
   constexpr int kCols = kTileN / kThreadsX;
   const int j0 = blockIdx.x * kTileN + threadIdx.x;
   const int i0 = blockIdx.y * kTileM + threadIdx.y;
-  const T v = *var;
+  const long long b = blockIdx.z;
+  x += b * sx;
+  y += b * sy;
+  out += b * static_cast<long long>(n) * m;
+  const T v = var[b * sv];
 
   T yv[kCols];
   if (D1) {
@@ -104,27 +119,35 @@ km_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+struct Batch {
+  int count;
+  long long sx, sy, sv;  // element strides between batch entries
+};
+
 template <typename T, int KIND>
 void launch_kind(const T* x, const T* y, const T* var, T* out, int n, int m,
-                 int d, int same, cudaStream_t stream) {
+                 int d, int same, Batch bt, cudaStream_t stream) {
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((m + kTileN - 1) / kTileN, (n + kTileM - 1) / kTileM);
+  const dim3 grid((m + kTileN - 1) / kTileN, (n + kTileM - 1) / kTileM, bt.count);
   if (d == 1)
-    km_kernel<T, KIND, true><<<grid, block, 0, stream>>>(x, y, var, out, n, m, d, same);
+    km_kernel<T, KIND, true><<<grid, block, 0, stream>>>(x, y, var, out, n, m, d, same,
+                                                         bt.sx, bt.sy, bt.sv);
   else
-    km_kernel<T, KIND, false><<<grid, block, 0, stream>>>(x, y, var, out, n, m, d, same);
+    km_kernel<T, KIND, false><<<grid, block, 0, stream>>>(x, y, var, out, n, m, d, same,
+                                                          bt.sx, bt.sy, bt.sv);
 }
 
 template <typename T>
 int launch(const T* x, const T* y, const T* var, T* out, int n, int m, int d,
-           int kind, int same, cudaStream_t stream) {
-  if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
-  if ((n + kTileM - 1) / kTileM > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+           int kind, int same, Batch bt, cudaStream_t stream) {
+  if (n <= 0 || m <= 0 || bt.count <= 0) return static_cast<int>(cudaSuccess);
+  if ((n + kTileM - 1) / kTileM > 65535 || bt.count > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   switch (kind) {
-    case kSE: launch_kind<T, kSE>(x, y, var, out, n, m, d, same, stream); break;
-    case kMatern12: launch_kind<T, kMatern12>(x, y, var, out, n, m, d, same, stream); break;
-    case kMatern32: launch_kind<T, kMatern32>(x, y, var, out, n, m, d, same, stream); break;
-    case kMatern52: launch_kind<T, kMatern52>(x, y, var, out, n, m, d, same, stream); break;
+    case kSE: launch_kind<T, kSE>(x, y, var, out, n, m, d, same, bt, stream); break;
+    case kMatern12: launch_kind<T, kMatern12>(x, y, var, out, n, m, d, same, bt, stream); break;
+    case kMatern32: launch_kind<T, kMatern32>(x, y, var, out, n, m, d, same, bt, stream); break;
+    case kMatern52: launch_kind<T, kMatern52>(x, y, var, out, n, m, d, same, bt, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -138,13 +161,33 @@ int launch(const T* x, const T* y, const T* var, T* out, int n, int m, int d,
 extern "C" int stheno_kernelmatrix_f32(const float* x, const float* y, const float* var,
                                        float* out, int n, int m, int d, int kind,
                                        int same, cudaStream_t stream) {
-  return launch<float>(x, y, var, out, n, m, d, kind, same, stream);
+  return launch<float>(x, y, var, out, n, m, d, kind, same, Batch{1, 0, 0, 0}, stream);
 }
 
 extern "C" int stheno_kernelmatrix_f64(const double* x, const double* y, const double* var,
                                        double* out, int n, int m, int d, int kind,
                                        int same, cudaStream_t stream) {
-  return launch<double>(x, y, var, out, n, m, d, kind, same, stream);
+  return launch<double>(x, y, var, out, n, m, d, kind, same, Batch{1, 0, 0, 0}, stream);
+}
+
+// The batched launch: x holds `batch` (n, d) matrices `sx` elements apart,
+// y `batch` (m, d) matrices `sy` apart (y == x and sy == sx for same-input
+// calls), var `batch` values `sv` apart; out is (batch, n, m), contiguous.
+// Each (n, d) or (m, d) matrix is row-major and contiguous.
+extern "C" int stheno_kernelmatrix_batched_f32(const float* x, const float* y,
+                                               const float* var, float* out, int batch,
+                                               int n, int m, int d, int kind, int same,
+                                               long long sx, long long sy, long long sv,
+                                               cudaStream_t stream) {
+  return launch<float>(x, y, var, out, n, m, d, kind, same, Batch{batch, sx, sy, sv}, stream);
+}
+
+extern "C" int stheno_kernelmatrix_batched_f64(const double* x, const double* y,
+                                               const double* var, double* out, int batch,
+                                               int n, int m, int d, int kind, int same,
+                                               long long sx, long long sy, long long sv,
+                                               cudaStream_t stream) {
+  return launch<double>(x, y, var, out, n, m, d, kind, same, Batch{batch, sx, sy, sv}, stream);
 }
 
 extern "C" const char* stheno_error_string(int code) {

@@ -15,6 +15,16 @@ it never holds more than a few N×chunk temporaries besides K̄ itself.  The
 caller folds the lengthscale into `x` and `y` (`x / ℓ`), so ∂ℓ flows
 through autograd, as at `kernelmatrix.py:95-97` of the reference.
 
+`_KernelMatrix` composes with `torch.func`: under `torch.func.vmap` (a
+per-chain lengthscale puts a batch dimension on x, a per-chain variance on
+σ²) its `vmap` rule moves the batch dimensions to the front, expands the
+unbatched operands as views, and makes one batched launch of the kernel
+(`kernelmatrix_batched_forward`: x (C, N, D), y (C, M, D) or None, σ² (C,)),
+the counterpart of the batching rule that `jax.vmap` applies to the
+`pallas_call`.  The backward under `vmap` goes through `_KernelMatrixVJP`,
+whose `vmap` rule runs the batched VJP in row chunks.  Batched launches are
+counted in `BATCHED_LAUNCHES` by (C, N, M, D, same).
+
 `km_se_d1(x, variance)` replaces the fourth Pallas kernel of the JAX
 package, `make_km_pallas` in `scripts/perf_probe.py:116-154`: the same-input
 SE matrix of a vector, σ²·exp(−½(x_i − x_j)²).  That is this kernel's
@@ -32,11 +42,15 @@ import math
 import torch
 
 from stheno_tpu_torch.cuda import _build
+from stheno_tpu_torch.func_transforms import under_transform
 
 KINDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 #: Launches of the CUDA kernel, by (n, m, d, same).
 LAUNCHES = _build.LaunchCounter("kernelmatrix")
+#: Batched launches (one for a whole `torch.func.vmap` batch), by
+#: (c, n, m, d, same).
+BATCHED_LAUNCHES = _build.LaunchCounter("kernelmatrix_batched")
 #: Launches made through `km_se_d1`, by (n, n, 1, True).
 KM_SE_D1_LAUNCHES = _build.LaunchCounter("km_se_d1")
 
@@ -89,21 +103,32 @@ def _epilogue_grad(kind: str, sq):
 
 
 def _sqdist(x, y):
-    """Σ_d (x_id − y_jd)², the direct difference the kernel computes."""
+    """Σ_d (x_id − y_jd)², the direct difference the kernel computes, over
+    any leading batch dimensions of x (..., N, D) and y (..., M, D)."""
     sq = None
-    for k in range(x.shape[1]):
-        diff = x[:, k, None] - y[None, :, k]
+    for k in range(x.shape[-1]):
+        diff = x[..., :, k, None] - y[..., None, :, k]
         sq = diff * diff if sq is None else sq + diff * diff
     return sq
 
 
+def _per_matrix(variance):
+    """σ² shaped to scale a (..., N, M) stack: a batch (C,) of variances
+    becomes (C, 1, 1); a 0-d tensor or a number stays as it is."""
+    if torch.is_tensor(variance) and variance.dim() > 0:
+        return variance[..., None, None]
+    return variance
+
+
 def kernelmatrix_plain(x, y, kind: str, variance):
-    """Plain PyTorch version of the kernel (same arithmetic).  `y=None` is
-    the same-input call, whose diagonal is exactly σ²·g(0) = σ²."""
+    """Plain PyTorch version of the kernel (same arithmetic), for x (N, D)
+    and y (M, D), or over a leading batch: x (C, N, D), y (C, M, D) and σ²
+    (C,).  `y=None` is the same-input call, whose diagonal is exactly
+    σ²·g(0) = σ²."""
     sq = _sqdist(x, x if y is None else y)
     if y is None:
-        sq.fill_diagonal_(0.0)
-    return variance * epilogue(kind, sq)
+        sq.diagonal(dim1=-2, dim2=-1).zero_()
+    return _per_matrix(variance) * epilogue(kind, sq)
 
 
 def _launch(x, y, kind: str, variance, counter=LAUNCHES):
@@ -144,6 +169,51 @@ def kernelmatrix_forward(x, y, kind: str, variance):
     return kernelmatrix_plain(x, y, kind, variance)
 
 
+def _launch_batched(x, y, kind: str, variance):
+    """One launch for a batch: x (C, N, D), y (C, M, D) or None, σ² (C,).
+    Each (N, D) matrix must be contiguous; the batch stride may be anything,
+    0 included (an operand shared by the batch, expanded as a view)."""
+    same = y is None
+    yy = x if same else y
+    for name, t in (("x", x), ("y", yy)):
+        if t.dim() != 3 or not t[0].is_contiguous():
+            raise ValueError(f"kernelmatrix: batched {name} must be (C, N, D) with contiguous (N, D) slices")
+    c, n, d = x.shape
+    if yy.shape[0] != c or yy.shape[2] != d or variance.shape != (c,):
+        raise ValueError(f"kernelmatrix: batch shapes differ: x {tuple(x.shape)}, y {tuple(yy.shape)}, "
+                         f"variance {tuple(variance.shape)}")
+    if x.dtype not in (torch.float32, torch.float64) or yy.dtype != x.dtype:
+        raise TypeError(f"kernelmatrix: needs float32 or float64 inputs, got {x.dtype}/{yy.dtype}")
+    if yy.device != x.device or variance.device != x.device:
+        raise ValueError("kernelmatrix: inputs and variance must be on one CUDA device")
+    var = variance.detach().to(x.dtype)
+    m = yy.shape[1]
+    out = torch.empty((c, n, m), dtype=x.dtype, device=x.device)
+    lib = _build.library("kernelmatrix")
+    fn = (lib.stheno_kernelmatrix_batched_f32 if x.dtype == torch.float32
+          else lib.stheno_kernelmatrix_batched_f64)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), yy.data_ptr(), var.data_ptr(), out.data_ptr(), c, n, m, d,
+                  KINDS[kind], int(same), x.stride(0), yy.stride(0), var.stride(0), stream)
+    _build.check(lib, code, "kernelmatrix batched launch")
+    BATCHED_LAUNCHES.add((c, n, m, d, same))
+    return out
+
+
+def kernelmatrix_batched_forward(x, y, kind: str, variance):
+    """The batched kernel on CUDA tensors (x (C, N, D), y (C, M, D) or None,
+    σ² (C,)), its batched plain version on CPU tensors."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown stationary kernel {kind!r}")
+    if x.is_cuda:
+        return _launch_batched(x, y, kind, variance)
+    return kernelmatrix_plain(x, y, kind, variance)
+
+
 def km_se_d1_plain(x, variance=1.5):
     """σ²·exp(−½(x_i − x_j)²) of a vector x by broadcasting (the probe's
     `km_xla`, reference `scripts/perf_probe.py:46-48`)."""
@@ -174,57 +244,118 @@ def kernelmatrix_vjp(x, y, kind: str, variance, K_bar):
     row chunks.  With dK/dx_i = σ² g'(sq) · 2(x_i − y_j):
     σ̄² = Σ K̄⊙g, x̄ the row and ȳ the column reductions of
     W⊙(x_i − y_j) with W = 2σ² K̄⊙g'.  Same-input calls (`y=None`) return
-    x̄ + ȳ as x̄ and None as ȳ."""
+    x̄ + ȳ as x̄ and None as ȳ.
+
+    Over a leading batch (x (C, N, D), y (C, M, D), σ² (C,), K̄ (C, N, M))
+    each entry is the VJP of its own matrix, σ̄² (C,); a chunk then holds
+    its rows of every batch entry."""
     same = y is None
     yy = x if same else y
-    n, D = x.shape
+    n, D = x.shape[-2:]
+    batch = x.shape[:-2]
     gx = torch.zeros_like(x)
     gy = torch.zeros_like(yy)
-    gv = torch.zeros((), dtype=x.dtype, device=x.device)
-    two_var = 2.0 * variance.to(x.dtype)
-    step = _chunk_rows(yy.shape[0])
+    gv = torch.zeros(batch, dtype=x.dtype, device=x.device)
+    two_var = _per_matrix(2.0 * variance.to(x.dtype))
+    step = _chunk_rows(yy.shape[-2] * max(1, math.prod(batch)))
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
-        diffs = [x[r0:r1, k, None] - yy[None, :, k] for k in range(D)]
+        diffs = [x[..., r0:r1, k, None] - yy[..., None, :, k] for k in range(D)]
         sq = diffs[0] * diffs[0]
         for diff in diffs[1:]:
             sq = sq + diff * diff
         if same:
-            sq[:, r0:r1].fill_diagonal_(0.0)
+            sq.diagonal(offset=r0, dim1=-2, dim2=-1).zero_()
         g, dg = _epilogue_grad(kind, sq)
-        Kb = K_bar[r0:r1]
-        gv = gv + torch.sum(Kb * g)
+        Kb = K_bar[..., r0:r1, :]
+        gv = gv + torch.sum(Kb * g, dim=(-2, -1))
         W = two_var * Kb * dg
         for k, diff in enumerate(diffs):
             t = W * diff
-            gx[r0:r1, k] += t.sum(dim=1)
-            gy[:, k] -= t.sum(dim=0)
+            gx[..., r0:r1, k] += t.sum(dim=-1)
+            gy[..., :, k] -= t.sum(dim=-2)
     if same:
         return gx + gy, None, gv
     return gx, gy, gv
 
 
+def _to_front(info, in_dims, *args):
+    """The operands of a `vmap` rule with their batch dimensions moved to
+    the front; an unbatched tensor is expanded to the batch as a view."""
+    out = []
+    for a, bdim in zip(args, in_dims):
+        if a is None:
+            out.append(None)
+        elif bdim is None:
+            out.append(a.expand(info.batch_size, *a.shape))
+        else:
+            out.append(a.movedim(bdim, 0))
+    return out
+
+
 class _KernelMatrix(torch.autograd.Function):
-    """K = σ²·g(‖x_i − y_j‖²) with a hand-written backward.  Saves only
-    the inputs, never K, so callers may update K in place."""
+    """K = σ²·g(‖x_i − y_j‖²) with a hand-written backward and a batched
+    `vmap` rule.  Saves only the inputs, never K, so callers may update K
+    in place."""
 
     @staticmethod
-    def forward(ctx, x, y, variance, kind):
+    def forward(x, y, variance, kind):
+        return kernelmatrix_forward(x, y, kind, variance)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, variance, kind = inputs
         ctx.kind = kind
         ctx.save_for_backward(x, y, variance)
-        return kernelmatrix_forward(x, y, kind, variance)
 
     @staticmethod
     def backward(ctx, K_bar):
         x, y, variance = ctx.saved_tensors
-        gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
+        if under_transform():
+            # torch.func: the VJP's own Function carries the batched rule
+            gx, gy, gv = _KernelMatrixVJP.apply(x, y, variance, K_bar, ctx.kind)
+        else:
+            gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
         need_x, need_y, need_v, _ = ctx.needs_input_grad
         return (gx if need_x else None, gy if need_y else None,
                 gv if need_v else None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, variance, kind):
+        x, y, variance = _to_front(info, in_dims[:3], x, y, variance)
+        x = x if x[0].is_contiguous() else x.contiguous()
+        if y is not None and not y[0].is_contiguous():
+            y = y.contiguous()
+        return kernelmatrix_batched_forward(x, y, kind, variance), 0
+
+
+class _KernelMatrixVJP(torch.autograd.Function):
+    """`kernelmatrix_vjp` as a Function, so that `torch.func.vmap` of the
+    backward takes the batched VJP (one chunked pass over the batch) and
+    never runs the in-place row updates on batched tensors."""
+
+    @staticmethod
+    def forward(x, y, variance, K_bar, kind):
+        return kernelmatrix_vjp(x, y, kind, variance, K_bar)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("kernelmatrix: the VJP under torch.func is not differentiable again")
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, variance, K_bar, kind):
+        x, y, variance, K_bar = _to_front(info, in_dims[:4], x, y, variance, K_bar)
+        gx, gy, gv = kernelmatrix_vjp(x, y, kind, variance, K_bar)
+        return (gx, gy, gv), (0, None if gy is None else 0, 0)
 
 
 def kernelmatrix(x, y, kind: str, variance):
     """K[i, j] = σ²·g(‖x_i − y_j‖²) for x (N, D) and y (M, D) (or `y=None`
     for the same-input matrix with its exact diagonal), lengthscale already
-    folded in.  `variance` is a 0-d tensor; gradients flow to x, y and it."""
+    folded in.  `variance` is a 0-d tensor; gradients flow to x, y and it.
+    Under `torch.func.vmap` the whole batch is one batched launch."""
     return _KernelMatrix.apply(x, y, variance, kind)

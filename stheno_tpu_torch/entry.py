@@ -1,5 +1,6 @@
 """The port's entry points: the flagship programme, the extended Mauna Loa
-model and the pseudo-point programme.
+model, the pseudo-point programme, and the samplers' workloads (NUTS over GP
+hyperparameters, SMC model evidence).
 
 The flagship (counterpart of `__graft_entry__._flagship`):
 `f1 = GP(v1·SE(·/l1))`, `f2 = GP(Matern32(·/l2))`, `f3 = f1 + f2`, with `f3`
@@ -39,6 +40,21 @@ the collapsed Titsias ELBO (VFE):
   (value and gradient in the flat θ), `pseudo_points_fit` (Adam) and
   `pseudo_points_predict` (`posterior_vfe`, marginals of f1 and f3).
 
+NUTS over GP hyperparameters (counterpart of `examples/nuts_hyperparameters.py`
+and `scripts/nuts_bench.py`, BASELINE #5): `f = GP(v·SE(·/l))` observed under
+noise, standard-normal priors on the unconstrained θ = log(l, noise, v):
+
+- `nuts_data(n, dtype, device, seed)`: x sorted uniform on [−5, 5] and y a
+  draw of 2·SE(·/1.3) under noise variance 0.1, made with numpy;
+- `nuts_logdensity(data)`: `(logdensity, theta0, unflatten)`;
+- `nuts_run(...)`: warmup and sampling over batched chains (`run_nuts`),
+  with the draws mapped to the constrained (v, l, noise).
+
+SMC model evidence (counterpart of `examples/smc_model_evidence.py`): data
+from the SE model, and the SE and Matern32 models' log-likelihoods in
+q = log(v, l, noise) (`smc_data`, `smc_loglike`, `smc_logprior`,
+`SMC_BUILDS`, `smc_run`).
+
 Everything runs on `cuda` unless the caller passes `device="cpu"`.  At
 N ≥ 4096 on the card, an f32 factorisation takes the blocked path through
 all three CUDA kernels (any other dtype takes it with the library's base
@@ -48,6 +64,9 @@ with the kernels' plain versions.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -56,10 +75,14 @@ from stheno_tpu_torch.convert import resolve_device
 from stheno_tpu_torch.finite_gp import VFE, elbo, logpdf, marginals, posterior, posterior_vfe
 from stheno_tpu_torch.gppp import gppp
 from stheno_tpu_torch.graph import GP
-from stheno_tpu_torch.inference import fit
+from stheno_tpu_torch.inference import fit, run_nuts, run_smc
 from stheno_tpu_torch.inputs import BlockData, GPPPInput
 from stheno_tpu_torch.kernels import Matern32Kernel, SEKernel, with_lengthscale
-from stheno_tpu_torch.models.workloads import mauna_loa_style, pseudo_points_model
+from stheno_tpu_torch.models.workloads import (
+    hyperparameter_model,
+    mauna_loa_style,
+    pseudo_points_model,
+)
 
 THETA = dict(v1=1.5, l1=1.0, l2=0.5, noise=0.1)
 
@@ -305,3 +328,138 @@ def pseudo_points_predict(params, data, xp, noise=None):
         fx, u = pseudo_points_observations(params, data[0])
         post = posterior_vfe(VFE(u), fx, data[1])
         return marginals(post(pseudo_points_query(xp), noise))
+
+
+# ---------------------------------------------------------------------------
+# NUTS over GP hyperparameters (BASELINE #5) and SMC model evidence
+# ---------------------------------------------------------------------------
+
+#: The NUTS model: f = GP(v·SE(·/l)), a `@gppp` function of (v, l).
+build_hyperparameters = hyperparameter_model
+#: The NUTS data's truth: signal variance, lengthscale, noise variance.
+NUTS_TRUTH = dict(v=2.0, l=1.3, noise=0.1)
+#: The SMC data's truth.
+SMC_TRUTH = dict(v=1.5, l=1.2, noise=0.1)
+
+
+def _se_draw(x, v, l, noise, rng):
+    """y ~ N(0, v·SE(·/l) + noise·I) at x, in f64 with numpy."""
+    d = (x[:, None] - x[None, :]) / l
+    K = v * np.exp(-0.5 * d * d) + noise * np.eye(len(x))
+    return np.linalg.cholesky(K) @ rng.normal(size=len(x))
+
+
+def nuts_data(n=60, dtype=torch.float64, device="cuda", seed=1):
+    """`(x, y)` on `device`: x (n,) sorted uniform on [−5, 5], y a draw of
+    2·SE(·/1.3) under noise variance 0.1, made with numpy from `seed`."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-5.0, 5.0, n))
+    y = _se_draw(x, NUTS_TRUTH["v"], NUTS_TRUTH["l"], NUTS_TRUTH["noise"], rng)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y))
+
+
+def nuts_spec(dtype=torch.float64, device="cuda"):
+    """The example's spec: v, l, noise positive at 1.0, 1.0, 0.3."""
+    dev = resolve_device(device)
+    return {k: P.positive(torch.tensor(v, dtype=dtype, device=dev))
+            for k, v in dict(v=1.0, l=1.0, noise=0.3).items()}
+
+
+def nuts_logdensity(data):
+    """`(logdensity, theta0, unflatten)` of the NUTS workload: logdensity(θ)
+    = log p(y | v, l, noise) − ½‖θ‖², a standard-normal prior on the
+    unconstrained θ (in sorted-key order: l, noise, v), the spec's θ0, and
+    its map to the constrained values."""
+    x, y = data
+    theta0, unflatten = P.init(nuts_spec(x.dtype, x.device))
+
+    def logdensity(theta):
+        p = unflatten(theta)
+        fx = build_hyperparameters(p)(GPPPInput("f", x), p["noise"])
+        return logpdf(fx, y) - 0.5 * torch.sum(theta**2)
+
+    return logdensity, theta0, unflatten
+
+
+class NUTSRun(NamedTuple):
+    theta: torch.Tensor  # (C, S, 3) unconstrained draws
+    params: dict  # name -> (C, S) constrained draws
+    info: object  # NUTSInfo of (C, S)
+    state: object  # the final ChainState
+
+
+def nuts_params(theta, unflatten):
+    """The constrained draws {v, l, noise} of unconstrained draws (..., 3)."""
+    flat = theta.reshape(-1, theta.shape[-1])
+    vals = torch.func.vmap(unflatten)(flat)
+    return {k: v.reshape(theta.shape[:-1]) for k, v in vals.items()}
+
+
+def nuts_run(num_warmup=300, num_samples=400, num_chains=4, max_depth=10, n=60,
+             dtype=torch.float64, device="cuda", seed=11, data=None, resume_state=None,
+             sample_offset=0, check_rhat=True):
+    """The example's run: `num_chains` chains of NUTS with Stan warmup over
+    the posterior of (v, l, noise) given `data` (default `nuts_data(n)`);
+    with `resume_state`, sampling only from it.  Returns `NUTSRun`."""
+    if data is None:
+        data = nuts_data(n, dtype, device)
+    logdensity, theta0, unflatten = nuts_logdensity(data)
+    theta, info, state = run_nuts(seed, logdensity, theta0, num_warmup=num_warmup,
+                                  num_samples=num_samples, num_chains=num_chains,
+                                  max_depth=max_depth, return_state=True,
+                                  resume_state=resume_state, sample_offset=sample_offset,
+                                  check_rhat=check_rhat)
+    return NUTSRun(theta, nuts_params(theta, unflatten), info, state)
+
+
+@gppp
+def smc_build_m32(p):
+    """The SMC example's alternative model: f = GP(v·Matern32(·/l))."""
+    return dict(f=GP(p["v"] * with_lengthscale(Matern32Kernel(), p["l"])))
+
+
+#: The SMC example's two models, by name.
+SMC_BUILDS = {"SE": hyperparameter_model, "Matern32": smc_build_m32}
+
+
+def smc_data(n=50, dtype=torch.float64, device="cuda", seed=3):
+    """`(x, y)` on `device`: x (n,) sorted uniform on [−4, 4], y a draw of
+    the SE model (v 1.5, l 1.2) under noise variance 0.1, numpy from `seed`."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-4.0, 4.0, n))
+    y = _se_draw(x, SMC_TRUTH["v"], SMC_TRUTH["l"], SMC_TRUTH["noise"], rng)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y))
+
+
+def smc_loglike(build, data):
+    """The log-likelihood of q = log(v, l, noise) under the model `build`."""
+    x, y = data
+
+    def loglike(q):
+        p = dict(v=torch.exp(q[0]), l=torch.exp(q[1]), noise=torch.exp(q[2]))
+        return logpdf(build(p)(GPPPInput("f", x), p["noise"]), y)
+
+    return loglike
+
+
+def smc_logprior(q):
+    """Standard-normal prior on q (3,)."""
+    return -0.5 * torch.sum(q**2) - 1.5 * math.log(2 * math.pi)
+
+
+def smc_particles(num_particles=512, dtype=torch.float64, device="cuda", seed=1):
+    """Prior draws (num_particles, 3), made with numpy from `seed`."""
+    dev = resolve_device(device)
+    draws = np.random.default_rng(seed).normal(size=(num_particles, 3))
+    return torch.as_tensor(draws, dtype=dtype, device=dev)
+
+
+def smc_run(build, data, num_particles=512, seed=5, num_mcmc=5, hmc_step_size=0.25,
+            hmc_num_steps=10):
+    """The example's run for one model: adaptive-tempering SMC from
+    `num_particles` prior draws.  Returns `SMCResult`."""
+    init = smc_particles(num_particles, data[0].dtype, data[0].device)
+    return run_smc(seed, smc_loglike(build, data), smc_logprior, init, num_mcmc=num_mcmc,
+                   hmc_step_size=hmc_step_size, hmc_num_steps=hmc_num_steps)

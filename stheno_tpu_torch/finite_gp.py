@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from stheno_tpu_torch.config import default_jitter
+from stheno_tpu_torch.func_transforms import under_transform
 from stheno_tpu_torch.inputs import input_dtype, input_length
 from stheno_tpu_torch.ops import chol as _chol
 from stheno_tpu_torch.tree import frozen_dataclass
@@ -34,12 +35,16 @@ class _AddDiagInPlace(torch.autograd.Function):
     second N×N matrix (1 GiB at N = 16384 in f32)."""
 
     @staticmethod
-    def forward(ctx, K, d):
+    def forward(K, d):
+        K.diagonal().add_(d.to(K.device))
+        return K
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        K, d = inputs
         ctx.d_shape = d.shape
         ctx.d_device = d.device
-        K.diagonal().add_(d.to(K.device))
         ctx.mark_dirty(K)
-        return K
 
     @staticmethod
     def backward(ctx, K_bar):
@@ -47,6 +52,15 @@ class _AddDiagInPlace(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             gd = K_bar.diagonal().sum_to_size(ctx.d_shape).to(ctx.d_device)
         return K_bar, gd
+
+
+def _add_diag(K, d):
+    """K + diag(d): in place on K outside `torch.func`'s transforms; under
+    them (a vmapped batch of covariances, one per chain) out of place, which
+    `torch.func` differentiates and batches itself."""
+    if under_transform():
+        return K.diagonal_scatter(K.diagonal() + d.to(K.device))
+    return _AddDiagInPlace.apply(K, d)
 
 
 @frozen_dataclass
@@ -58,7 +72,7 @@ class DiagNoise:
     def add_to(self, K):
         """K + diag(d), written into the diagonal of K (K must be a fresh
         covariance that nothing else holds)."""
-        return _AddDiagInPlace.apply(K, torch.as_tensor(self.d).to(dtype=K.dtype))
+        return _add_diag(K, torch.as_tensor(self.d).to(dtype=K.dtype))
 
     def diag(self, n):
         return torch.broadcast_to(self.d, (n,))

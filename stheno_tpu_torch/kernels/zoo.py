@@ -37,12 +37,18 @@ def _variance_like(variance, x):
 
 class _Exp(torch.autograd.Function):
     """eˣ that saves x, not its output, for backward, so the caller may add
-    into the output in place (the backward recomputes eˣ)."""
+    into the output in place (the backward recomputes eˣ).  Under
+    `torch.func.vmap` its rule is generated: it is elementwise."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, t):
-        ctx.save_for_backward(t)
+    def forward(t):
         return torch.exp(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):

@@ -4,8 +4,9 @@
 `cholesky_psd` routes a single large matrix on a CUDA device (N ≥ 4096), or
 any single matrix under `config.chol_backend("blocked")`, to the blocked
 factorisation of `ops/blocked_cholesky.py`, which reads tril(K) only.
-Everything else is symmetrised and goes to `torch.linalg.cholesky`, as the
-reference sends it to `lax.linalg.cholesky`.
+Everything else, a `torch.func.vmap` batch included, is symmetrised and
+goes to `torch.linalg.cholesky`, as the reference sends it to
+`lax.linalg.cholesky`.
 
 `mvn_logpdf_psd` can route a single-vector logpdf to the fused form
 (`_MvnLogpdfFused`), whose backward is the closed form ½(ααᵀ − K⁻¹) with
@@ -21,6 +22,7 @@ import math
 import torch
 
 from stheno_tpu_torch import config as _cfg
+from stheno_tpu_torch.func_transforms import is_vmapped
 
 #: Cholesky backend: 'auto' routes large single matrices on a CUDA device to
 #: the blocked factorisation, everything else to torch.linalg.
@@ -41,6 +43,13 @@ def add_jitter(K, jitter):
 
 
 def _use_blocked(K):
+    """Whether K takes the blocked route: a single matrix only.  A vmapped
+    batch (one covariance per chain, which looks like one (N, N) matrix
+    under `torch.func.vmap`) goes to `torch.linalg` under every backend, as
+    the reference's vmapped factor goes to `lax.linalg`: the blocked path's
+    Functions, ctypes launches and panel loops do not batch."""
+    if is_vmapped(K):
+        return False
     backend = _cfg.active_override("chol_backend", CHOL_BACKEND)
     if backend == "blocked":
         return K.dim() == 2

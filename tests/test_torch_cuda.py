@@ -13,6 +13,7 @@ import torch
 
 import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
+from stheno_tpu_torch import entry
 from stheno_tpu_torch.ops import chol as tchol
 from stheno_tpu_torch.cuda import chol_block as tcb
 from stheno_tpu_torch.cuda import kernelmatrix as tkm
@@ -106,7 +107,8 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
     tkm.km_se_d1(x[:, 0])
     torch.cuda.synchronize()
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
-        "kernelmatrix": 1, "chol_block": 1, "tri_inv_block": 1, "km_se_d1": 1}
+        "kernelmatrix": 1, "kernelmatrix_batched": 0, "chol_block": 1, "tri_inv_block": 1,
+        "km_se_d1": 1}
     with pytest.raises(TypeError):
         tcb.chol_block(A.half())
     with pytest.raises(TypeError):  # the kernels are f32 only
@@ -234,3 +236,66 @@ def test_fused_logpdf_at_4096_matches_the_default_route(cuda_device):
     assert tri_inv_in_backward > 0
     np.testing.assert_allclose(val, base_val, rtol=1e-4)
     np.testing.assert_allclose(grad, base_grad, rtol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_batched_kernelmatrix_matches_plain(cuda_device, dtype):
+    """The batched launch (a grid dimension over the batch) against its
+    batched plain version, at ragged N and M, D = 1 and 3, same-input and
+    cross, an operand shared by the batch (an expanded view, batch stride
+    0) included; and C = 1 against the unbatched launch, bit for bit."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    atol = 1e-5 if dtype == torch.float32 else 1e-13
+    for dim in (1, 3):
+        x = (torch.randn(5, 1000, dim, generator=gen) * 2).to(cuda_device, dtype)
+        y = (torch.randn(5, 777, dim, generator=gen) * 2).to(cuda_device, dtype)
+        shared = y[0].expand(5, 777, dim)
+        var = (torch.rand(5, generator=gen) + 0.5).to(cuda_device, dtype)
+        for kind in sorted(tkm.KINDS):
+            for yy in (None, y, shared):
+                kern.reset_counters()
+                K = tkm.kernelmatrix_batched_forward(x, yy, kind, var)
+                assert kern.COUNTERS["kernelmatrix_batched"].total == 1
+                Kp = tkm.kernelmatrix_plain(x, None if yy is None else yy.contiguous(), kind, var)
+                torch.testing.assert_close(K, Kp, rtol=0, atol=atol)
+                if yy is None:
+                    assert bool((K.diagonal(dim1=-2, dim2=-1) == var[:, None]).all())
+        one = tkm.kernelmatrix_batched_forward(x[:1], y[:1], "matern32", var[:1])
+        assert torch.equal(one[0], tkm.kernelmatrix_forward(x[0], y[0], "matern32", var[0]))
+
+
+def test_vmapped_logdensity_at_4096_takes_torch_linalg(cuda_device):
+    """`torch.func.vmap(grad_and_value)` of the NUTS model's log-density at
+    N = 4096 in f32 over 4 chains: one batched launch of kernel 1 for the
+    forward, no unbatched one, and neither kernel 2 nor kernel 3 (the
+    batch is factored by `torch.linalg`); per chain it agrees with the
+    unbatched log-density, whose factor takes the blocked path."""
+    data = entry.nuts_data(4096, torch.float32, cuda_device)
+    fn, theta0, _ = entry.nuts_logdensity(data)
+    thetas = theta0[None, :] + 0.1 * torch.randn(4, 3, generator=torch.Generator(device="cpu").manual_seed(0)).to(cuda_device)
+    kern.reset_counters()
+    grad, val = torch.func.vmap(torch.func.grad_and_value(fn))(thetas)
+    torch.cuda.synchronize()
+    counts = {k: c.total for k, c in kern.COUNTERS.items()}
+    assert counts == {"kernelmatrix": 0, "kernelmatrix_batched": 1, "chol_block": 0,
+                      "tri_inv_block": 0, "km_se_d1": 0}, counts
+    assert list(kern.COUNTERS["kernelmatrix_batched"].by_shape) == [(4, 4096, 4096, 1, True)]
+    for c in range(4):
+        th = thetas[c].clone().requires_grad_(True)
+        v = fn(th)
+        (g,) = torch.autograd.grad(v, th)
+        # f32 at N = 4096: the batched torch.linalg factor against the blocked one
+        np.testing.assert_allclose(val[c].item(), v.item(), rtol=1e-4)
+        assert ((grad[c] - g).abs().max() / g.abs().max()).item() <= 5e-3
+
+
+def test_resume_is_bit_identical_on_the_card(cuda_device):
+    """NUTS over 4 chains of the GP model (N = 256, f32) on the card: a run
+    cut into two resumed halves gives the same draws as one run, bit for bit."""
+    data = entry.nuts_data(256, torch.float32, cuda_device)
+    whole = entry.nuts_run(20, 12, 4, max_depth=6, data=data, seed=2, check_rhat=False)
+    first = entry.nuts_run(20, 6, 4, max_depth=6, data=data, seed=2, check_rhat=False)
+    second = entry.nuts_run(num_samples=6, num_chains=4, max_depth=6, data=data, seed=2,
+                            resume_state=first.state, sample_offset=6, check_rhat=False)
+    assert torch.equal(whole.theta, torch.cat([first.theta, second.theta], dim=1))
+    assert torch.equal(whole.state.q, second.state.q)

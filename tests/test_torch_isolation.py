@@ -18,10 +18,12 @@ import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
 from stheno_tpu_torch import entry, markov, params, perf_probe
 from stheno_tpu_torch.convert import (
+    chain_state_from_numpy,
     likelihood_from_numpy,
     spec_from_numpy,
     svgp_from_numpy,
     theta_from_numpy,
+    warmup_state_from_numpy,
 )
 from stheno_tpu_torch.cuda import _build
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -83,7 +85,9 @@ def test_forbidden_tells_the_jax_package_from_the_port():
 
 @pytest.mark.parametrize("name", ["markov", "perf_probe", "params", "inference/vi", "models/workloads",
                                   "utils/testing", "entry", "convert", "finite_gp", "ops/chol",
-                                  "inference/svgp", "inference/likelihoods", "inference/laplace"])
+                                  "inference/svgp", "inference/likelihoods", "inference/laplace",
+                                  "inference/hmc", "inference/smc", "inference/diagnostics",
+                                  "inference/checkpoint", "func_transforms", "tree"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -105,10 +109,20 @@ def test_the_new_modules_are_walked(name):
     lambda: entry.pseudo_points_fit(1),
     lambda: svgp_from_numpy(type("Q", (), {"q_mu": np.zeros(2), "q_sqrt": np.eye(2)})(), None),
     lambda: likelihood_from_numpy(stt.inference.BernoulliLikelihood()),
+    lambda: entry.nuts_data(),
+    lambda: entry.nuts_run(1, 1),
+    lambda: entry.smc_data(),
+    lambda: entry.smc_particles(),
+    lambda: chain_state_from_numpy(stt.inference.ChainState(*[np.zeros(2)] * 5)),
+    lambda: warmup_state_from_numpy(type("W", (), dict(
+        q=np.zeros(2), logp=np.zeros(()), grad=np.zeros(2), inv_mass=np.ones(2),
+        da=type("D", (), dict.fromkeys(("log_eps", "log_eps_avg", "grad_avg", "t", "mu"), 0.0))(),
+        wf=type("F", (), dict.fromkeys(("count", "mean", "m2"), 0.0))()))()),
 ], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
         "markov_gp_logpdf", "sde_representation", "mauna_loa_data", "mauna_loa_spec",
         "mauna_loa_fit", "spec_from_numpy", "pseudo_points_data", "pseudo_points_fit",
-        "svgp_from_numpy", "likelihood_from_numpy"])
+        "svgp_from_numpy", "likelihood_from_numpy", "nuts_data", "nuts_run", "smc_data",
+        "smc_particles", "chain_state_from_numpy", "warmup_state_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -141,7 +155,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert np.isfinite(pp_val.item()) and bool(torch.isfinite(pp_grad).all())
     assert pp_ms.mean.shape == (128,) and np.isfinite(fused_val.item())
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
-        "kernelmatrix": 0, "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0}
+        "kernelmatrix": 0, "kernelmatrix_batched": 0, "chol_block": 0, "tri_inv_block": 0,
+        "km_se_d1": 0}
 
 
 def test_build_raises_with_the_reason_when_nvcc_is_missing(monkeypatch, tmp_path):
