@@ -71,7 +71,21 @@ the CUDA toolkit.  In one run it
    gradient's time, peak memory, a profiled transition), R̂, divergences
    and the truth inside the posterior, and a run cut into two resumed
    halves against one run, bit for bit; (e) SMC (the example: N = 50, 512
-   particles, f64) for the SE and Matern32 models with its assertions.
+   particles, f64) for the SE and Matern32 models with its assertions;
+11. runs derivative and convolved processes, the NKN and pathwise sampling:
+   kernel 1's forward-mode rule (the kernel's primal, a plain tangent) in
+   f32 against `torch.func.jvp` over the plain version in f64, first and
+   nested tangents, SE and Matern32, D = 1 and 2; (a) the gradient-enhanced
+   GP (f and f′ observed jointly, N = 16384): one −logpdf and gradient step
+   and the posterior of f, f′ and f″ at 3 × 1024 points against f64 (with
+   cuSOLVER's f32 route beside them for scale), the covariance's blocks
+   timed alone, a profiled step; (b) pathwise posterior samples of the
+   flagship programme (S = 64, F = 1024) against f64, f1 + f2 against f3,
+   and their mean against `predict`; (c) deconvolution (Cf observed at
+   N = 16384 on 2048 quadrature nodes): step and posterior against f64, and
+   which base cases the f32 gradient's error follows; (d) the NKN example's
+   own run and one step at N = 8192 against f64; and the examples
+   `differentiation.py` and `quadrature_convolution.py` with their checks.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -136,6 +150,35 @@ NUTS_FULL = (2048, 16, 8)
 NUTS_FULL_WARMUP, NUTS_FULL_SAMPLES = 60, 100
 NUTS_SEED = 11
 SMC_PARTICLES = 512
+#: phase 11: the derivative path's N (f at N/2 points, f′ at N/2) and
+#: prediction points per process; pathwise samples and features a leaf; the
+#: deconvolution's quadrature nodes; the NKN step's N and the example's
+#: Adam steps (its `--fast` run)
+DERIV_N, DERIV_M = 16384, 1024
+PW_S, PW_F = 64, 1024
+DECONV_Q = 2048
+NKN_N, NKN_STEPS = 8192, 120
+#: kernel 1's forward-mode rule against forward mode through the plain
+#: version (absolute; fp32 tangents of order 1)
+JVP_TOL = 1e-5
+#: the query noise of phase 11's posterior marginals, in f32 and f64 alike
+PRED_NOISE = 1e-6
+#: Matern pairs closer than this are left out of the nested jvp comparison:
+#: ten f32 epsilons, past the masked square root's clamp (distance ≤ eps)
+NEAR = 10 * 1.1920928955078125e-07
+#: the gradient-enhanced path at σ² = 0.01, condition about 2.4e5 (its
+#: λmax/σ²): the step's f32 gradient against f64, of its largest component
+#: (the noise derivative, a difference of two terms of order N/σ²).  At
+#: these inputs cuSOLVER's own f32 route reads 1.4e-2 (H100 80GB HBM3,
+#: 700 W), so the limits of PERF.md §2 (5e-3) cannot hold here on any f32
+#: route; `stheno_tpu_torch/accuracy_probe.py` shows the spread over data
+#: seeds.  The deconvolution step keeps 5e-3, the means 1e-3
+DERIV_GRAD_TOL = 2e-2
+#: the same gradients at σ² = 1 (condition about 2.4e3), where f32
+#: resolves every component: v, l and the noise, each against its own f64
+#: value
+COMPONENT_NOISE = 1.0
+COMPONENT_TOL = 1e-3
 PROFILE_KINDS = (
     ("kernelmatrix", ("km_kernel",)),
     ("chol_block", ("chol_block_kernel",)),
@@ -283,6 +326,21 @@ def spd_blocks(torch, batch, n, dtype, device, seed):
     G = torch.randn(batch, n, n, generator=g, dtype=torch.float64).to(device)
     A = G @ G.mT / n + torch.eye(n, dtype=torch.float64, device=device)
     return A.to(dtype=dtype)
+
+def cond_estimate(torch, fx, noise, iters=30):
+    """λmax(K + σ²I)/σ² for the FiniteGP `fx` (f64), λmax by power
+    iteration: an upper estimate of the covariance's condition (λmin ≥ σ²)."""
+    with torch.no_grad():
+        K = fx.cov()
+        v = torch.ones(K.shape[0], dtype=K.dtype, device=K.device)
+        lam = 0.0
+        for _ in range(iters):
+            w = K @ v
+            lam = w.norm().item() / v.norm().item()
+            v = w / w.norm()
+        del K
+    return lam / noise
+
 
 def counts_now(kern):
     """Each kernel's launches since the last reset, total and by shape."""
@@ -865,6 +923,306 @@ def samplers_path(torch, dev, card):
            "launches_smc_se": smc_counts["kernelmatrix_batched"], "smc_shape": rows["smc"]}
     torch.cuda.empty_cache()
     return run_counts, smc_counts, row
+
+
+def derivatives_path(torch, dev, card):
+    """Phase 11: derivative and convolved processes, the NKN and pathwise
+    sampling.  Returns the launch counts of paths (a)-(d), by path."""
+    import numpy as np
+
+    import stheno_tpu_torch as stt
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch import entry as E
+    from stheno_tpu_torch import params as P
+    from stheno_tpu_torch.cuda.kernelmatrix import kernelmatrix, kernelmatrix_plain
+    from stheno_tpu_torch.ops.chol import cholesky_psd
+
+    f32, f64 = torch.float32, torch.float64
+    counts, out = {}, {"card": card}
+
+    def jo(fn, x):
+        return torch.func.jvp(fn, (x,), (torch.ones_like(x),))[1]
+
+    def d64(t):
+        return t.double() if torch.is_tensor(t) else {k: v.double() for k, v in t.items()}
+
+    def rel(a, b):
+        return ((a.double() - b).abs().max() / b.abs().max()).item()
+
+    def grad_rel(g, g64):
+        a = torch.stack([g[k].double() for k in g64])
+        b = torch.stack([g64[k] for k in g64])
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def own_rel(g, g64):
+        return {k: abs(g[k].item() - g64[k].item()) / abs(g64[k].item()) for k in g64}
+
+    def components_at_low_condition(step, theta, data):
+        """The step's gradient at σ² = COMPONENT_NOISE, f32 against f64,
+        each component against its own value."""
+        th = dict(theta, noise=torch.tensor(COMPONENT_NOISE, dtype=f32, device=dev))
+        return own_rel(step(th, data)[1], step(d64(th), tuple(d64(t) for t in data))[1])
+
+    def launched(label, need):
+        torch.cuda.synchronize()
+        c, shapes = counts_now(kern)
+        counts[label] = c
+        emit({f"launches_{label}": c, "by_shape": shapes})
+        for name in need:
+            require(c[name] > 0, f"{label}: kernel {name} was not launched: {c}")
+        return c
+
+    # (0) kernel 1's forward-mode rule on the card (f32) against
+    # torch.func.jvp over the plain version in f64 on the same inputs: the
+    # first tangent and the nested one, at the derivative path's 8192² block
+    # (D = 1) and at 2048² D = 2.  The f32 plain version's own error is
+    # printed beside it: forward mode through its masked square root loses
+    # digits at close pairs (1.8e-4 for Matern32 at D = 2 on the CPU, where
+    # the rule reads 8e-7).  A Matern kernel's nested tangent jumps from its
+    # limit to 0 where the distance is clamped (sq ≤ eps², which f32 and f64
+    # place at different distances), so pairs closer than NEAR (ten f32
+    # epsilons) are left out of its comparison, counted, and their error
+    # printed on its own
+    xf, xd, y, xp, theta = E.derivative_data(DERIV_N, DERIV_M, f32, dev)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x2 = torch.randn(2048, 2, generator=gen).to(dev)
+    y2 = torch.randn(2048, 2, generator=gen).to(dev)
+    one = torch.tensor(1.0, dtype=f32, device=dev)
+    jvp_rows = []
+    routes = ((kernelmatrix, f32), (kernelmatrix_plain, f64), (kernelmatrix_plain, f32))
+    for kind in ("se", "matern32"):
+        for label, a0, b0 in (("D=1 8192x8192", xf[:, None], xd[:, None]),
+                              ("D=2 2048x2048", x2, y2)):
+            res = []
+            for fn, dt in routes:
+                aa, bb, vv = a0.to(dt), b0.to(dt), one.to(dt)
+                first = jo(lambda b: fn(aa, b, kind, vv), bb)
+                nested = jo(lambda a: jo(lambda b: fn(a, b, kind, vv), bb), aa)
+                res.append((first.double(), nested.double()))
+            dist = torch.cdist(a0.double(), b0.double(), compute_mode="donot_use_mm_for_euclid_dist")
+            far = dist > (NEAR if kind != "se" else -1.0)
+            row = {"kind": kind, "shape": label,
+                   "first_max_abs_err": (res[0][0] - res[1][0]).abs().max().item(),
+                   "nested_max_abs_err": ((res[0][1] - res[1][1]) * far).abs().max().item(),
+                   "nested_max_abs": res[1][1].abs().max().item(),
+                   "pairs_left_out": int((~far).sum().item()),
+                   "nested_max_abs_err_left_out":
+                       ((res[0][1] - res[1][1]) * ~far).abs().max().item(),
+                   "plain_f32_nested_max_abs_err":
+                       ((res[2][1] - res[1][1]) * far).abs().max().item()}
+            jvp_rows.append(row)
+            del res, dist, far
+            require(row["first_max_abs_err"] <= JVP_TOL and row["nested_max_abs_err"] <= JVP_TOL,
+                    f"kernel 1's jvp rule {kind} {label}: {row}")
+    emit({"check": "kernelmatrix_jvp", "tolerance_abs": JVP_TOL, "cases": jvp_rows, "card": card})
+
+    # (a) the gradient-enhanced GP: f and f′ observed jointly at N = 16384
+    data = (xf, xd, y, xp)
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    val, grad = E.derivative_step(theta, data)
+    a = launched("derivative_step", ("kernelmatrix", "chol_block", "tri_inv_block"))
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    val64, grad64 = E.derivative_step(d64(theta), tuple(d64(t) for t in data))
+    a_val, a_grad = abs(val.item() - val64.item()) / abs(val64.item()), grad_rel(grad, grad64)
+    a_own = own_rel(grad, grad64)
+    a_comp = components_at_low_condition(E.derivative_step, theta, data)
+    # for scale, the same f32 step by the library's factor (cuSOLVER): the
+    # gradient in the noise is a difference of two terms of order N/σ²
+    # (0.5·tr K⁻¹ and 0.5·αᵀα), which f32 resolves to about cond·eps of them
+    with stt.config.chol_backend("torch"):
+        lib_val, lib_grad = E.derivative_step(theta, data)
+    a_lib_val = abs(lib_val.item() - val64.item()) / abs(val64.item())
+    a_lib_grad = grad_rel(lib_grad, grad64)
+    # the marginals under one query noise in both dtypes (the default
+    # jitter depends on the dtype); the posterior variance is the prior's
+    # less a nearly equal term, so f32 cancels digits there: it is held to
+    # 1e-3 of the prior variance, the means to 1e-3 of max|mean64|
+    kern.reset_counters()
+    ms = E.derivative_predict(theta, data, noise=PRED_NOISE)
+    launched("derivative_predict", ("kernelmatrix", "chol_block", "tri_inv_block"))
+    ms64 = E.derivative_predict(d64(theta), tuple(d64(t) for t in data), noise=PRED_NOISE)
+    prior64 = E.build_derivative(d64(theta))
+    blocks = [(k, sl) for k, sl in zip(("f", "df", "ddf"), torch.arange(3 * DERIV_M).split(DERIV_M))]
+    mean_err = {k: rel(ms.mean[sl], ms64.mean[sl]) for k, sl in blocks}
+    with stt.config.chol_backend("torch"):
+        lib_ms = E.derivative_predict(theta, data, noise=PRED_NOISE)
+    lib_mean_err = {k: rel(lib_ms.mean[sl], ms64.mean[sl]) for k, sl in blocks}
+    del lib_ms
+    var_err = {k: ((ms.var[sl].double() - ms64.var[sl]).abs().max()
+                   / prior64[k].var(d64(xp)).max()).item() for k, sl in blocks}
+    var_err_of_post = {k: rel(ms.var[sl], ms64.var[sl]) for k, sl in blocks}
+    a_cond = cond_estimate(torch, E.derivative_observation(d64(theta), tuple(d64(t) for t in data)),
+                           theta["noise"].item())
+    del ms64, val64, grad64, prior64
+    # the covariance's blocks, alone: K_ff (kernel 1), K_f,df (one jvp) and
+    # K_df,df (a nested jvp); forward, and forward with the backward of ΣK
+    g = E.build_derivative(theta)
+    block_fns = {"K_ff": lambda p: p["f"].cov(xf),
+                 "K_f_df": lambda p: stt.cross_cov(p["f"], p["df"], xf, xd),
+                 "K_df_df": lambda p: p["df"].cov(xd)}
+    block = {}
+    for name, fn in block_fns.items():
+        kern.reset_counters()
+        with torch.no_grad():
+            fn(g)
+        torch.cuda.synchronize()
+        launches = kern.COUNTERS["kernelmatrix"].total
+
+        def fwd_bwd(fn=fn):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in theta.items()}
+            torch.autograd.grad(fn(E.build_derivative(leaves)).sum(), [leaves["v"], leaves["l"]])
+
+        with torch.no_grad():
+            fwd = host_ms(lambda: fn(g), reps=3)
+        block[name] = {"fwd_ms": fwd, "fwd_bwd_ms": host_ms(fwd_bwd, reps=3),
+                       "kernel1_launches": launches}
+    fx = E.derivative_observation(theta, data)
+    with torch.no_grad():
+        K = fx.cov()
+        block["factor"] = {"fwd_ms": host_ms(lambda: cholesky_psd(K), reps=3)}
+    del K, fx, g
+    out["derivative"] = {
+        "n": DERIV_N, "m": DERIV_M, "dtype": "float32", "value_rel_err_f64": a_val,
+        "grad_rel_err_f64": a_grad, "grad_own_rel_err_f64": a_own,
+        f"grad_own_rel_err_f64_at_noise_{COMPONENT_NOISE}": a_comp,
+        "library_f32_value_rel_err": a_lib_val, "library_f32_grad_rel_err": a_lib_grad,
+        "mean_rel_err_f64": mean_err, "library_f32_mean_rel_err": lib_mean_err,
+        "var_err_f64_of_prior_var": var_err, "var_rel_err_f64": var_err_of_post,
+        "condition_estimate": a_cond,
+        "step_ms": host_ms(lambda: E.derivative_step(theta, data), reps=3),
+        "predict_ms": host_ms(lambda: E.derivative_predict(theta, data), reps=3),
+        "blocks": block, "peak_step_gib": peak_step, "launches_step": a}
+    emit({"derivative": out["derivative"]})
+    emit({"profile_derivative_step": profile_ms(lambda: E.derivative_step(theta, data))})
+    require(a_val <= 1e-4, f"derivative step f32 vs f64: value rel err {a_val} > 1e-4")
+    require(a_grad <= DERIV_GRAD_TOL,
+            f"derivative step f32 vs f64: gradient err {a_grad} > {DERIV_GRAD_TOL} (condition "
+            f"about {a_cond:.3g}; cuSOLVER's f32 route {a_lib_grad})")
+    for k, e in a_comp.items():
+        require(e <= COMPONENT_TOL, f"derivative step at σ² = {COMPONENT_NOISE}: gradient in {k} "
+                                    f"off by {e} of itself > {COMPONENT_TOL}")
+    for k in mean_err:
+        require(mean_err[k] <= 1e-3,
+                f"derivative predict {k}: mean err {mean_err[k]} (of max|mean64|) > 1e-3 "
+                f"(condition about {a_cond:.3g}; cuSOLVER's f32 route {lib_mean_err[k]})")
+        require(var_err[k] <= 1e-3, f"derivative predict {k}: var err {var_err[k]} > 1e-3 of "
+                                    "the prior variance")
+    del data, xf, xd, y, xp, theta, ms
+    torch.cuda.empty_cache()
+
+    # (b) pathwise posterior samples of the flagship programme
+    x, y, xp, th = E.flagship_data(N, M, f32, dev)
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    draws = E.pathwise_samples(th, x, y, xp, PW_S, PW_F)
+    b = launched("pathwise", ("kernelmatrix", "chol_block", "tri_inv_block"))
+    peak_pw = torch.cuda.max_memory_allocated() / 2**30
+    draws64 = E.pathwise_samples(d64(th), d64(x), d64(y), d64(xp), PW_S, PW_F)
+    pw_err = {k: rel(draws[k], draws64[k]) for k in draws}
+    coherent = {"float32": rel(draws["f1"] + draws["f2"], draws["f3"].double()),
+                "float64": rel(draws64["f1"] + draws64["f2"], draws64["f3"])}
+    m_pred, _ = E.predict(th, x, y, xp)
+    s_mean, s_sd = draws["f1"].mean(0), draws["f1"].std(0)
+    mc = (s_mean - m_pred).abs() / (s_sd / math.sqrt(PW_S))
+    mc_slack = 1e-3 * m_pred.abs().max().item()
+    mc_ok = bool(((s_mean - m_pred).abs() <= 5 * s_sd / math.sqrt(PW_S) + mc_slack).all())
+    out["pathwise"] = {"n": N, "m": M, "samples": PW_S, "features": PW_F, "dtype": "float32",
+                       "rel_err_f64": pw_err, "f1_plus_f2_vs_f3": coherent,
+                       "mean_vs_predict_max_z": mc.max().item(),
+                       "sample_ms": host_ms(lambda: E.pathwise_samples(th, x, y, xp, PW_S, PW_F),
+                                            reps=3),
+                       "peak_gib": peak_pw, "launches": b}
+    emit({"pathwise": out["pathwise"]})
+    for k, e in pw_err.items():
+        require(e <= 1e-3, f"pathwise {k} f32 vs f64: {e} > 1e-3 of max|draw64|")
+    # f3 and f1 + f2 are two evaluations, each a sum over N = 16384 terms
+    require(coherent["float64"] <= 1e-9 and coherent["float32"] <= 1e-3,
+            f"pathwise: f1 + f2 differs from f3 beyond rounding: {coherent}")
+    require(mc_ok, "pathwise: the draws' mean of f1 is not within 5 Monte-Carlo standard errors "
+                   f"(+ {mc_slack}) of predict's posterior mean")
+    del draws, draws64, x, y, xp, th
+    torch.cuda.empty_cache()
+
+    # (c) deconvolution: Cf observed at N = 16384, the latent read at 1024
+    cx, cy, cxp, cth = E.deconvolution_data(N, M, DECONV_Q, f32, dev)
+    cdata = (cx, cy, cxp)
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    val, grad = E.deconvolution_step(cth, cdata)
+    c = launched("deconvolution_step", ("kernelmatrix", "chol_block", "tri_inv_block"))
+    peak_c = torch.cuda.max_memory_allocated() / 2**30
+    val64, grad64 = E.deconvolution_step(d64(cth), tuple(d64(t) for t in cdata))
+    c_val, c_grad = abs(val.item() - val64.item()) / abs(val64.item()), grad_rel(grad, grad64)
+    c_own = own_rel(grad, grad64)
+    c_comp = components_at_low_condition(E.deconvolution_step, cth, cdata)
+    with stt.config.chol_backend("torch"):
+        c_lib_grad = grad_rel(E.deconvolution_step(cth, cdata)[1], grad64)
+    cms = E.deconvolution_predict(cth, cdata, noise=PRED_NOISE)
+    cms64 = E.deconvolution_predict(d64(cth), tuple(d64(t) for t in cdata), noise=PRED_NOISE)
+    c_cond = cond_estimate(torch, E.build_deconvolution(d64(cth))(
+        stt.GPPPInput("Cf", cx.double()), cth["noise"].item()), cth["noise"].item())
+    c_mean = {k: rel(cms.mean[sl], cms64.mean[sl])
+              for k, sl in zip(("f", "Cf"), torch.arange(2 * M).split(M))}
+    out["deconvolution"] = {
+        "n": N, "m": M, "nodes": DECONV_Q, "dtype": "float32", "value_rel_err_f64": c_val,
+        "grad_rel_err_f64": c_grad, "library_f32_grad_rel_err": c_lib_grad,
+        "grad_own_rel_err_f64": c_own, f"grad_own_rel_err_f64_at_noise_{COMPONENT_NOISE}": c_comp,
+        "mean_rel_err_f64": c_mean, "condition_estimate": c_cond,
+        "step_ms": host_ms(lambda: E.deconvolution_step(cth, cdata), reps=3),
+        "predict_ms": host_ms(lambda: E.deconvolution_predict(cth, cdata), reps=3),
+        "peak_step_gib": peak_c, "launches_step": c}
+    emit({"deconvolution": out["deconvolution"]})
+    require(c_val <= 1e-4, f"deconvolution step f32 vs f64: value rel err {c_val} > 1e-4")
+    require(c_grad <= 5e-3,
+            f"deconvolution step f32 vs f64: gradient err {c_grad} > 5e-3 (condition "
+            f"about {c_cond:.3g}; cuSOLVER's f32 route {c_lib_grad})")
+    for k, e in c_comp.items():
+        require(e <= COMPONENT_TOL, f"deconvolution step at σ² = {COMPONENT_NOISE}: gradient in "
+                                    f"{k} off by {e} of itself > {COMPONENT_TOL}")
+    for k, e in c_mean.items():
+        require(e <= 1e-3, f"deconvolution predict {k}: mean {e} > 1e-3 of max|mean64|")
+    del cms, cms64, cdata, cx, cy, cxp, cth
+    torch.cuda.empty_cache()
+
+    # (d) the NKN: the example's own run (144 points, f64, 120 Adam steps,
+    # its checks), then one step at N = 8192 against f64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = E.nkn_example(NKN_STEPS, device=dev)
+    ex["seconds"] = time.perf_counter() - t0
+    emit({"nkn_example": ex})
+    nx, ny, n_train, period = E.nkn_data(NKN_N, f32, dev)
+    spec = E.nkn_spec(nx[:n_train], period)
+    theta0, _ = P.init(spec)
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    val, grad = E.nkn_step(theta0, nx, ny, spec)
+    d = launched("nkn_step", ("kernelmatrix",))
+    peak_n = torch.cuda.max_memory_allocated() / 2**30
+    val64, grad64 = E.nkn_step(theta0.double(), nx.double(), ny.double(),
+                               E.nkn_spec(nx[:n_train].double(), period))
+    n_val = abs(val.item() - val64.item()) / abs(val64.item())
+    n_grad = ((grad.double() - grad64).abs().max() / grad64.abs().max()).item()
+    with stt.config.chol_backend("torch"):
+        n_lib_grad = ((E.nkn_step(theta0, nx, ny, spec)[1].double() - grad64).abs().max()
+                      / grad64.abs().max()).item()
+    out["nkn"] = {"n": NKN_N, "dtype": "float32", "value_rel_err_f64": n_val,
+                  "grad_rel_err_f64": n_grad, "library_f32_grad_rel_err": n_lib_grad,
+                  "parameters": int(theta0.numel()),
+                  "step_ms": host_ms(lambda: E.nkn_step(theta0, nx, ny, spec), reps=3),
+                  "peak_step_gib": peak_n, "launches_step": d}
+    emit({"nkn": out["nkn"]})
+    require(n_val <= 1e-4, f"NKN step f32 vs f64: value rel err {n_val} > 1e-4")
+    require(n_grad <= 5e-3, f"NKN step f32 vs f64: gradient err {n_grad} > 5e-3")
+    del nx, ny, spec, theta0
+    torch.cuda.empty_cache()
+
+    # the examples differentiation.py and quadrature_convolution.py at
+    # their own sizes (f64), with their own checks
+    emit({"differentiation_example": E.differentiation_example(dev),
+          "quadrature_convolution_example": E.quadrature_convolution_example(dev)})
+    return counts, jvp_rows
 
 
 def main():
@@ -1604,6 +1962,14 @@ def main():
         row["launches_samplers"] = sampler_counts[row["name"]]
         row["launches_smc"] = smc_counts[row["name"]]
     batched_row["launches_step"] = step_counts["kernelmatrix_batched"]
+
+    # ---- 11. derivatives, convolutions, the NKN, pathwise samples ------------
+    path_counts, jvp_rows = derivatives_path(torch, dev, card)
+    for row in kernels + [batched_row]:
+        for path, c in path_counts.items():
+            row[f"launches_{path}"] = c[row["name"]]
+    kernels[0]["max_abs_err_jvp"] = max(
+        max(r["first_max_abs_err"], r["nested_max_abs_err"]) for r in jvp_rows)
     kernels.insert(1, batched_row)
     numerics_policy(torch)
     print(card, flush=True)

@@ -26,7 +26,12 @@ its closed-form reverse rule —
   (`inference.fit`, `inference.fit_lbfgs`); SVGP, the likelihoods and the
   Laplace approximation (`inference`);
 - the five BASELINE model families (`models`), the conformance checks
-  (`utils.testing`), and the state-space tier (`markov`).
+  (`utils.testing`), and the state-space tier (`markov`);
+- derivative processes (`derivative`, exact by nested `torch.func.jvp`
+  through kernel 1's forward-mode rule), quadrature convolutions
+  (`convolve_quadrature`), the Neural Kernel Network (`kernels.nkn`) and
+  pathwise sampling (`sampling`: random Fourier features and Matheron's
+  update).
 """
 
 from stheno_tpu_torch import config
@@ -61,7 +66,9 @@ from stheno_tpu_torch.graph import (
     AddFnGP,
     AtomicGP,
     CompositeGP,
+    ConvolvedGP,
     CrossGP,
+    DerivativeGP,
     FnWarp,
     ParamFn,
     Periodic,
@@ -76,9 +83,11 @@ from stheno_tpu_torch.graph import (
     additive_gp,
     atomic,
     compose,
+    convolve_quadrature,
     cross,
     cross_cov,
     cross_var,
+    derivative,
     periodic,
     select,
     shift,
@@ -95,7 +104,17 @@ from stheno_tpu_torch.inputs import (
 )
 from stheno_tpu_torch.kernels import *  # noqa: F401,F403
 from stheno_tpu_torch.kernels import __all__ as _kernels_all
+from stheno_tpu_torch.markov import (
+    markov_gp_logpdf,
+    markov_gp_posterior_marginals,
+    sde_representation,
+)
 from stheno_tpu_torch.means import ConstMean, FunctionMean, ZeroMean
+from stheno_tpu_torch.sampling import (
+    pathwise_conditioned_samples,
+    prior_samples,
+    spectral_features,
+)
 
 #: The reference's full name of a GPPP.
 GaussianProcessProbabilisticProgramme = GPPP
@@ -110,5 +129,7 @@ __all__ = list(_kernels_all) + [
     "Shift", "StaticFn", "Stretch", "SumGP", "WrappedGP", "additive_gp", "atomic",
     "compose", "cross", "cross_cov", "cross_var", "periodic", "select", "shift",
     "stretch", "BlockData", "ColVecs", "GPPPInput", "RowVecs", "input_length", "split",
-    "vcat", "ConstMean", "FunctionMean", "ZeroMean",
+    "vcat", "ConstMean", "FunctionMean", "ZeroMean", "ConvolvedGP", "DerivativeGP",
+    "convolve_quadrature", "derivative", "markov_gp_logpdf", "markov_gp_posterior_marginals",
+    "sde_representation", "pathwise_conditioned_samples", "prior_samples", "spectral_features",
 ]

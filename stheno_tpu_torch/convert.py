@@ -2,8 +2,10 @@
 way of `np.asarray`) into tensors, and pick the device of an entry point:
 hyperparameter trees (`theta_from_numpy`), parameter specs
 (`spec_from_numpy`), SVGP variational states (`svgp_from_numpy`),
-likelihoods (`likelihood_from_numpy`), and the samplers' states
-(`chain_state_from_numpy`, `warmup_state_from_numpy`)."""
+likelihoods (`likelihood_from_numpy`), the samplers' states
+(`chain_state_from_numpy`, `warmup_state_from_numpy`), the Neural Kernel
+Network's layers (`nkn_layers_from_numpy`) and random Fourier feature
+bases (`fourier_basis_from_numpy`)."""
 
 from __future__ import annotations
 
@@ -156,3 +158,35 @@ def warmup_state_from_numpy(state, dtype=None, device="cuda"):
     q, logp, grad, inv_mass = _tensors([state.q, state.logp, state.grad, state.inv_mass], dtype,
                                        device)
     return WarmupState(q, logp, grad, da, wf, inv_mass)
+
+
+def nkn_layers_from_numpy(layers, dtype=None, device="cuda"):
+    """The port's NKN layers from the JAX package's (or anything with the
+    same fields, found by class name): a `LinearLayer`'s `log_w` and
+    `log_b` (None stays None) read with `np.asarray` onto `device`, cast
+    to `dtype` when given; a `ProductLayer` keeps its `stride`."""
+    from stheno_tpu_torch.kernels.nkn import LinearLayer, ProductLayer
+
+    out = []
+    for layer in layers:
+        name = type(layer).__name__
+        if name == "LinearLayer":
+            (w,) = _tensors([layer.log_w], dtype, device)
+            b = None if layer.log_b is None else _tensors([layer.log_b], dtype, device)[0]
+            out.append(LinearLayer(w, b))
+        elif name == "ProductLayer":
+            out.append(ProductLayer(int(layer.stride)))
+        else:
+            raise ValueError(f"nkn_layers_from_numpy: unknown layer {name!r}")
+    return tuple(out)
+
+
+def fourier_basis_from_numpy(basis, transform=None, dtype=None, device="cuda"):
+    """The port's `FourierBasis` holding the `omega`, `phase` and `scale`
+    draws of `basis` (the JAX package's, or anything holding those three
+    arrays), read with `np.asarray` onto `device` and cast to `dtype` when
+    given, with the port's input map `transform` (None: linear features)."""
+    from stheno_tpu_torch.sampling import FourierBasis
+
+    omega, phase, scale = _tensors([basis.omega, basis.phase, basis.scale], dtype, device)
+    return FourierBasis(omega, phase, scale, transform)

@@ -15,6 +15,15 @@ it never holds more than a few N×chunk temporaries besides K̄ itself.  The
 caller folds the lengthscale into `x` and `y` (`x / ℓ`), so ∂ℓ flows
 through autograd, as at `kernelmatrix.py:95-97` of the reference.
 
+Its forward-mode rule (`jvp`, `kernelmatrix_jvp`) is plain PyTorch in row
+chunks too: K̇ = σ²·g'(sq)·2Σ_k (x_ik − y_jk)(ẋ_ik − ẏ_jk) + σ̇²·g(sq), with
+the primal from the kernel.  It runs through `func_transforms.lowered_jvp`,
+so an enclosing jvp or reverse pass differentiates the tangent again: the
+derivative processes of `graph.py` take ∂ₓ∂_y k by a nested
+`torch.func.jvp`, and the logpdf's gradient runs back through both.  The
+Matern kernels' g' is 0 wherever the distance is clamped (sq ≤ eps²), as
+their VJP's is.
+
 `_KernelMatrix` composes with `torch.func`: under `torch.func.vmap` (a
 per-chain lengthscale puts a batch dimension on x, a per-chain variance on
 σ²) its `vmap` rule moves the batch dimensions to the front, expands the
@@ -42,7 +51,7 @@ import math
 import torch
 
 from stheno_tpu_torch.cuda import _build
-from stheno_tpu_torch.func_transforms import under_transform
+from stheno_tpu_torch.func_transforms import lowered_jvp, under_transform
 
 KINDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
@@ -279,6 +288,48 @@ def kernelmatrix_vjp(x, y, kind: str, variance, K_bar):
     return gx, gy, gv
 
 
+def kernelmatrix_jvp(x, y, kind: str, variance, x_dot, y_dot, v_dot):
+    """The tangent K̇ of K = σ²·g(‖x_i − y_j‖²) along (ẋ, ẏ, σ̇²), any of
+    them None for a zero tangent, in row chunks:
+
+        K̇ = σ²·g'(sq)·2Σ_k (x_ik − y_jk)(ẋ_ik − ẏ_jk) + σ̇²·g(sq).
+
+    x (N, D) and y (M, D); `y=None` is the same-input call (y = x, ẏ = ẋ),
+    whose diagonal difference is exactly zero.  Plain differentiable
+    PyTorch throughout, so torch can differentiate the tangent again."""
+    if y is None:
+        y, y_dot = x, x_dot
+    n, D = x.shape
+    two_var = 2.0 * variance
+    step = _chunk_rows(y.shape[0])
+    chunks = []
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        diffs = [x[r0:r1, k, None] - y[None, :, k] for k in range(D)]
+        sq = diffs[0] * diffs[0]
+        for diff in diffs[1:]:
+            sq = sq + diff * diff
+        g, dg = _epilogue_grad(kind, sq)
+        out = None
+        if x_dot is not None or y_dot is not None:
+            dsq = None
+            for k, diff in enumerate(diffs):
+                dd = None if x_dot is None else x_dot[r0:r1, k, None]
+                if y_dot is not None:
+                    yd = y_dot[None, :, k]
+                    dd = -yd if dd is None else dd - yd
+                t = diff * dd
+                dsq = t if dsq is None else dsq + t
+            out = two_var * dg * dsq
+        if v_dot is not None:
+            t = v_dot * g
+            out = t if out is None else out + t
+        if out is None:
+            out = torch.zeros_like(sq)
+        chunks.append(out)
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=-2)
+
+
 def _to_front(info, in_dims, *args):
     """The operands of a `vmap` rule with their batch dimensions moved to
     the front; an unbatched tensor is expanded to the batch as a view."""
@@ -294,9 +345,9 @@ def _to_front(info, in_dims, *args):
 
 
 class _KernelMatrix(torch.autograd.Function):
-    """K = σ²·g(‖x_i − y_j‖²) with a hand-written backward and a batched
-    `vmap` rule.  Saves only the inputs, never K, so callers may update K
-    in place."""
+    """K = σ²·g(‖x_i − y_j‖²) with hand-written backward and forward-mode
+    rules and a batched `vmap` rule.  Saves only the inputs, never K, so
+    callers may update K in place."""
 
     @staticmethod
     def forward(x, y, variance, kind):
@@ -306,7 +357,17 @@ class _KernelMatrix(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, y, variance, kind = inputs
         ctx.kind = kind
+        # absent tangents arrive as None, not as materialised zeros
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, y, variance)
+        ctx.save_for_forward(x, y, variance)
+
+    @staticmethod
+    def jvp(ctx, x_dot, y_dot, v_dot, _):
+        x, y, variance = ctx.saved_tensors
+        kind = ctx.kind
+        return lowered_jvp(lambda xx, yy, vv, *dots: kernelmatrix_jvp(xx, yy, kind, vv, *dots),
+                           x, y, variance, x_dot, y_dot, v_dot)
 
     @staticmethod
     def backward(ctx, K_bar):

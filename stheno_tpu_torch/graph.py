@@ -24,7 +24,11 @@ warps and composition (`CompositeGP`: `stretch`, `select`, `periodic`,
 A function-valued argument is a `ParamFn` (its tensors reach autograd as
 any tensor does), a warp, or any callable (held as a `StaticFn`).
 
-Not ported yet: derivative and convolved processes.
+Derivative processes (`DerivativeGP`, `derivative`) take every statistic
+as an exact derivative of the parent's by `torch.func.jvp` (nested for
+∂ₓ∂_y k), through kernel 1's forward-mode rule; convolved processes
+(`ConvolvedGP`, `convolve_quadrature`) contract the parent's statistics
+with a quadrature weight matrix, GEMMs on `torch.matmul`.
 """
 
 from __future__ import annotations
@@ -633,6 +637,155 @@ def additive_gp(fs, indices=None) -> AbstractProcess:
         p = select(f, idx)
         out = p if out is None else out + p
     return out
+
+
+# ---------------------------------------------------------------------------
+# Derivative processes (reference `graph.py:745-823`): exact, by forward mode
+# ---------------------------------------------------------------------------
+
+
+def _jvp_ones(fn, x):
+    """The tangent of `fn` at x along unit tangents, one jvp: a per-point
+    derivative, since every statistic's dependence on the i-th input point
+    is confined to its row (entry) i.  None where `fn` returns None (a
+    structural zero stays one)."""
+    zero = []
+
+    def g(xx):
+        out = fn(xx)
+        if out is None:
+            zero.append(True)
+            return xx.new_zeros(())
+        return out
+
+    x = torch.as_tensor(x)
+    tangent = torch.func.jvp(g, (x,), (torch.ones_like(x),))[1]
+    return None if zero else tangent
+
+
+@frozen_dataclass(eq=False)
+class DerivativeGP(AbstractProcess):
+    """f′, the derivative process of a once-differentiable process of 1-D
+    inputs.  Its statistics are exact derivatives of the parent's:
+    mean′(x) = ∂ₓ mean(x), cov(f′, f′)(x, y) = ∂ₓ∂_y k(x, y) and
+    cov(f′, g)(x, y) = ∂ₓ k_fg(x, y), by (nested) `torch.func.jvp`, so they
+    compose with every kernel, warp and op of the graph and with
+    conditioning (observe f, predict f′, and the reverse)."""
+
+    f: AbstractProcess
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def mean(self, x):
+        return _jvp_ones(self.f.mean, x)
+
+    def cov(self, x):
+        return self.cov2(x, x)
+
+    def cov2(self, x, x2):
+        return _jvp_ones(lambda xx: _jvp_ones(lambda yy: self.f.cov2(xx, yy), x2), x)
+
+    def var(self, x):
+        return self.var2(x, x)
+
+    def var2(self, x, x2):
+        return _jvp_ones(lambda xx: _jvp_ones(lambda yy: self.f.var2(xx, yy), x2), x)
+
+    def _cross_cov_l(self, other, x, x2):
+        return _jvp_ones(lambda xx: _cross_cov(self.f, other, xx, x2), x)
+
+    def _cross_cov_r(self, other, x, x2):
+        return _jvp_ones(lambda yy: _cross_cov(other, self.f, x, yy), x2)
+
+    def _cross_var_l(self, other, x, x2):
+        return _jvp_ones(lambda xx: _cross_var(self.f, other, xx, x2), x)
+
+    def _cross_var_r(self, other, x, x2):
+        return _jvp_ones(lambda yy: _cross_var(other, self.f, x, yy), x2)
+
+
+def derivative(f: AbstractProcess) -> DerivativeGP:
+    """The derivative process f′ (1-D inputs).  Composes freely: sums,
+    scalings, warps, second derivatives (`derivative(derivative(f))`),
+    conditioning across f and f′."""
+    return DerivativeGP(f, n=f.gpc.next_index(), gpc=f.gpc)
+
+
+# ---------------------------------------------------------------------------
+# Quadrature convolution (reference `graph.py:825-907`)
+# ---------------------------------------------------------------------------
+
+
+@frozen_dataclass(eq=False)
+class ConvolvedGP(AbstractProcess):
+    """(Cf)(x) ≈ Σ_j w(x, τ_j) Δ_j f(τ_j) over fixed quadrature nodes τ: a
+    linear functional of f, so every statistic is a contraction of the
+    parent's with W = w(x, τ)·diag(Δ).
+
+    `weight_fn(x, tau) -> (N, Q)` evaluates the window between each output
+    point and each node (on tensors); `nodes` are the quadrature points
+    (Q,) or (Q, D), `deltas` the quadrature weights (Q,)."""
+
+    f: AbstractProcess
+    nodes: torch.Tensor
+    deltas: torch.Tensor
+    weight_fn: object = static_field()
+    n: int = static_field()
+    gpc: GPC = static_field()
+
+    def _w(self, x):
+        W = torch.as_tensor(self.weight_fn(torch.as_tensor(x), self.nodes))
+        return W * self.deltas[None, :]
+
+    def mean(self, x):
+        return self._w(x) @ self.f.mean(self.nodes)
+
+    def cov(self, x):
+        W = self._w(x)
+        return W @ self.f.cov(self.nodes) @ W.T
+
+    def cov2(self, x, x2):
+        return self._w(x) @ self.f.cov(self.nodes) @ self._w(x2).T
+
+    def var(self, x):
+        W = self._w(x)
+        return torch.sum((W @ self.f.cov(self.nodes)) * W, dim=1)
+
+    def var2(self, x, x2):
+        return torch.sum((self._w(x) @ self.f.cov(self.nodes)) * self._w(x2), dim=1)
+
+    def _cross_cov_l(self, other, x, x2):
+        c = _cross_cov(self.f, other, self.nodes, x2)
+        return None if c is None else self._w(x) @ c
+
+    def _cross_cov_r(self, other, x, x2):
+        c = _cross_cov(other, self.f, x, self.nodes)
+        return None if c is None else c @ self._w(x2).T
+
+    def _cross_var_l(self, other, x, x2):
+        c = _cross_cov(self.f, other, self.nodes, x2)
+        return None if c is None else torch.sum(self._w(x) * c.T, dim=1)
+
+    def _cross_var_r(self, other, x, x2):
+        c = _cross_cov(other, self.f, x, self.nodes)
+        return None if c is None else torch.sum(c * self._w(x2), dim=1)
+
+
+def convolve_quadrature(f: AbstractProcess, weight_fn, nodes, deltas=None) -> ConvolvedGP:
+    """Convolve `f` with the window `weight_fn` on quadrature `nodes`.
+
+    `deltas` defaults to the trapezoid weights of a uniform 1-D grid.  The
+    result conditions jointly with f and every derived process
+    (deconvolution: observe Cf, predict f)."""
+    nodes = torch.as_tensor(nodes)
+    if deltas is None:
+        if nodes.dim() != 1:
+            raise ValueError("provide explicit deltas for non-1D nodes")
+        dx = nodes[1] - nodes[0]
+        deltas = torch.full_like(nodes, 1.0) * dx
+        deltas = torch.cat([0.5 * deltas[:1], deltas[1:-1], 0.5 * deltas[-1:]])
+    return ConvolvedGP(f, nodes, torch.as_tensor(deltas), weight_fn, n=f.gpc.next_index(),
+                       gpc=f.gpc)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 import math
 
 from stheno_tpu_torch.cuda.kernelmatrix import epilogue, kernelmatrix
+from stheno_tpu_torch.func_transforms import lowered_jvp
 from stheno_tpu_torch.kernels.base import Kernel
 from stheno_tpu_torch.ops import pairwise
 from stheno_tpu_torch.tree import frozen_dataclass, static_field
@@ -38,7 +39,9 @@ def _variance_like(variance, x):
 class _Exp(torch.autograd.Function):
     """eˣ that saves x, not its output, for backward, so the caller may add
     into the output in place (the backward recomputes eˣ).  Under
-    `torch.func.vmap` its rule is generated: it is elementwise."""
+    `torch.func.vmap` its rule is generated: it is elementwise.  Its
+    forward-mode rule ṫ·eᵗ runs through `lowered_jvp`, so nested jvps and
+    reverse mode differentiate it again."""
 
     generate_vmap_rule = True
 
@@ -49,11 +52,17 @@ class _Exp(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
         (t,) = ctx.saved_tensors
         return g * torch.exp(t)
+
+    @staticmethod
+    def jvp(ctx, t_dot):
+        (t,) = ctx.saved_tensors
+        return lowered_jvp(lambda a, a_dot: a_dot * torch.exp(a), t, t_dot)
 
 
 def _exp(t):

@@ -14,14 +14,21 @@ optimisation) or plain values (unconstrained):
     theta0, unflatten = init(spec)   # flat unconstrained vector
     params = unflatten(theta0)       # dict of constrained values
 
+A frozen dataclass inside a spec (a `LinearLayer` of the NKN, say) is a
+node whose fields that are not `static_field`s are its children, as a JAX
+pytree dataclass is; its raw tensors are free leaves (the NKN's log-weights
+train unconstrained beside constrained hyperparameters).
+
 The flat vector follows `jax.flatten_util.ravel_pytree`'s leaf order (dict
-keys sorted, `Fixed` leaves left out), so one spec gives the same θ here
-and in the reference.  A leaf keeps the dtype and device of the tensor it
-was made from; a Python number becomes float64, as the reference's
-`dtype=float` does under x64.  Bounds given as numbers stay numbers.
+keys sorted, dataclass fields in declaration order, `Fixed` leaves left
+out), so one spec gives the same θ here and in the reference.  A leaf
+keeps the dtype and device of the tensor it was made from; a Python number
+becomes float64, as the reference's `dtype=float` does under x64.  Bounds given as numbers stay numbers.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -118,6 +125,19 @@ def fixed(value):
     return Fixed(as_param(value))
 
 
+def _children(node):
+    """The child fields of a dataclass node: those not marked static."""
+    return [f.name for f in dataclasses.fields(node) if not f.metadata.get("static")]
+
+
+def _is_node(spec):
+    return dataclasses.is_dataclass(spec) and not isinstance(spec, (type, Param, Fixed))
+
+
+def _map_node(fn, node):
+    return dataclasses.replace(node, **{k: fn(getattr(node, k)) for k in _children(node)})
+
+
 def constrain(spec):
     """The spec with each `Param` and `Fixed` replaced by its value."""
     if isinstance(spec, (Param, Fixed)):
@@ -126,6 +146,8 @@ def constrain(spec):
         return {k: constrain(v) for k, v in spec.items()}
     if isinstance(spec, (list, tuple)):
         return type(spec)(constrain(v) for v in spec)
+    if _is_node(spec):
+        return _map_node(constrain, spec)
     return spec
 
 
@@ -142,6 +164,9 @@ def _free_leaves(spec, out):
     elif isinstance(spec, (list, tuple)):
         for v in spec:
             _free_leaves(v, out)
+    elif _is_node(spec):
+        for k in _children(spec):
+            _free_leaves(getattr(spec, k), out)
     else:
         out.append(_as_float(spec))
 
@@ -171,6 +196,8 @@ def init(spec):
                 return {k: vals[k] for k in s}
             if isinstance(s, (list, tuple)):
                 return type(s)(merge(v) for v in s)
+            if _is_node(s):
+                return _map_node(merge, s)
             return next(pieces)
 
         return merge(spec)

@@ -299,3 +299,100 @@ def test_resume_is_bit_identical_on_the_card(cuda_device):
                             resume_state=first.state, sample_offset=6, check_rhat=False)
     assert torch.equal(whole.theta, torch.cat([first.theta, second.theta], dim=1))
     assert torch.equal(whole.state.q, second.state.q)
+
+
+def _jvp_ones(fn, x):
+    return torch.func.jvp(fn, (x,), (torch.ones_like(x),))[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("kind", ["se", "matern32"])
+def test_kernelmatrix_jvp_matches_plain_on_the_card(cuda_device, kind, dim, dtype):
+    """Kernel 1's forward-mode rule on the card (the kernel's primal, the
+    rule's tangent) against `torch.func.jvp` over the plain version in f64:
+    the first tangent in y, the nested one (∂ₓ∂_y K) and reverse mode over
+    it (a sum over the 350000 entries, so relative), with the kernel
+    launched once per call of the Function.  A Matern kernel's nested
+    tangent jumps to 0 where the distance is clamped (≤ eps of the dtype),
+    so pairs closer than ten f32 epsilons are left out there."""
+    rng = np.random.default_rng(dim)
+    x64 = torch.as_tensor(rng.normal(size=(700, dim)), device=cuda_device)
+    y64 = torch.as_tensor(rng.normal(size=(500, dim)), device=cuda_device)
+    x, y = x64.to(dtype), y64.to(dtype)
+    out = []
+    for fn, dt in ((tkm.kernelmatrix, dtype), (tkm.kernelmatrix_plain, torch.float64)):
+        xx, yy = x.to(dt), y.to(dt)
+        v = torch.tensor(1.3, dtype=dt, device=cuda_device, requires_grad=True)
+        kern.reset_counters()
+        first = _jvp_ones(lambda b: fn(xx, b, kind, v), yy)
+        nested = _jvp_ones(lambda a: _jvp_ones(lambda b: fn(a, b, kind, v), yy), xx)
+        (g,) = torch.autograd.grad(nested.sum(), v)
+        if fn is tkm.kernelmatrix:
+            assert kern.COUNTERS["kernelmatrix"].total == 2
+        out.append((first.detach().double(), nested.detach().double(), g.double()))
+    far = torch.cdist(x.double(), y.double(), compute_mode="donot_use_mm_for_euclid_dist") > (
+        10 * torch.finfo(torch.float32).eps if kind != "se" else -1.0)
+    # fp32: exp and FMA rounding on derivative values of order 1
+    atol = 2e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=0, atol=atol)
+    torch.testing.assert_close(out[0][1] * far, out[1][1] * far, rtol=0, atol=atol)
+    if kind == "se":
+        torch.testing.assert_close(out[0][2], out[1][2], rtol=atol, atol=0)
+
+
+def test_gradient_enhanced_step_at_4096_launches_the_kernels(cuda_device):
+    """The derivative path at N = 4096 (f and f′ at 2048 points each): the
+    blocked factor (kernels 2 and 3) and kernel 1 for K_ff and the jvp
+    primals; value against f64 on the card (1e-4 relative), gradient within
+    2e-2 of its largest component: its noise component cancels two terms of
+    order N/σ² (the library's f32 factor's error is computed beside it for
+    the message).  At σ² = 1, where f32 resolves every component, each of
+    v, l and the noise is held to 1e-3 of its own f64 value."""
+    data = entry.derivative_data(4096, 64, torch.float32, cuda_device)
+    kern.reset_counters()
+    val, grad = entry.derivative_step(data[4], data[:3])
+    torch.cuda.synchronize()
+    counts = {k: c.total for k, c in kern.COUNTERS.items()}
+    assert counts["kernelmatrix"] >= 4, counts
+    assert counts["chol_block"] > 0 and counts["tri_inv_block"] > 0, counts
+    d64 = tuple(t.double() for t in data[:3])
+    val64, grad64 = entry.derivative_step({k: v.double() for k, v in data[4].items()}, d64)
+    np.testing.assert_allclose(val.item(), val64.item(), rtol=1e-4)
+    with stt.config.chol_backend("torch"):
+        _, lib_grad = entry.derivative_step(data[4], data[:3])
+    g64 = np.array([grad64[k].item() for k in grad64])
+
+    def err(gr):
+        return np.max(np.abs(np.array([gr[k].item() for k in grad64]) - g64)) / np.max(np.abs(g64))
+
+    assert err(grad) <= 2e-2, (err(grad), err(lib_grad))
+    th1 = dict(data[4], noise=torch.tensor(1.0, device=cuda_device))
+    g1 = entry.derivative_step(th1, data[:3])[1]
+    g1_64 = entry.derivative_step({k: v.double() for k, v in th1.items()}, d64)[1]
+    for k in g1_64:
+        assert abs(g1[k].item() - g1_64[k].item()) <= 1e-3 * abs(g1_64[k].item()), (k, g1, g1_64)
+
+
+def test_blocked_factor_backward_error_is_the_librarys(cuda_device):
+    """The f32 blocked factor of the gradient-enhanced GP's N = 16384
+    covariance (condition about 2.4e5): its backward error ‖LLᵀ − K‖_F /
+    ‖K‖_F, in f64, within 1.5× of cuSOLVER's.  Summed in one GEMM over all
+    earlier columns, the left-looking update read 3.7× cuSOLVER's on an
+    H100 (`stheno_tpu_torch/accuracy_probe.py`); panel by panel, 0.7×."""
+    xf, xd, y, xp, theta = entry.derivative_data(16384, 64, torch.float32, cuda_device)
+    with torch.no_grad():
+        K = entry.derivative_observation(theta, (xf, xd)).cov()
+        K64 = torch.tril(K).double()
+        K64 = K64 + torch.tril(K64, -1).mT
+
+        def bwd_err(L):
+            L64 = L.double()
+            return ((L64 @ L64.mT - K64).norm() / K64.norm()).item()
+
+        kern.reset_counters()
+        blocked = bwd_err(tchol.cholesky_psd(K))
+        assert kern.COUNTERS["chol_block"].total > 0
+        with stt.config.chol_backend("torch"):
+            library = bwd_err(tchol.cholesky_psd(K))
+    assert blocked <= 1.5 * library, (blocked, library)

@@ -16,10 +16,12 @@ import torch
 
 import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
-from stheno_tpu_torch import entry, markov, params, perf_probe
+from stheno_tpu_torch import accuracy_probe, entry, markov, params, perf_probe
 from stheno_tpu_torch.convert import (
     chain_state_from_numpy,
+    fourier_basis_from_numpy,
     likelihood_from_numpy,
+    nkn_layers_from_numpy,
     spec_from_numpy,
     svgp_from_numpy,
     theta_from_numpy,
@@ -87,7 +89,8 @@ def test_forbidden_tells_the_jax_package_from_the_port():
                                   "utils/testing", "entry", "convert", "finite_gp", "ops/chol",
                                   "inference/svgp", "inference/likelihoods", "inference/laplace",
                                   "inference/hmc", "inference/smc", "inference/diagnostics",
-                                  "inference/checkpoint", "func_transforms", "tree"])
+                                  "inference/checkpoint", "func_transforms", "tree", "sampling",
+                                  "kernels/nkn", "graph", "accuracy_probe"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -99,6 +102,7 @@ def test_the_new_modules_are_walked(name):
     lambda: theta_from_numpy({"v": np.ones(())}),
     lambda: perf_probe.Probe(n=8),
     lambda: perf_probe.main(["--n", "8", "null"]),
+    lambda: accuracy_probe.main(["--n", "64"]),
     lambda: markov.markov_gp_logpdf(stt.Matern32Kernel(), np.linspace(0, 1, 5), np.zeros(5), 0.1),
     lambda: markov.sde_representation(stt.Matern32Kernel()),
     lambda: entry.mauna_loa_data(),
@@ -118,11 +122,23 @@ def test_the_new_modules_are_walked(name):
         q=np.zeros(2), logp=np.zeros(()), grad=np.zeros(2), inv_mass=np.ones(2),
         da=type("D", (), dict.fromkeys(("log_eps", "log_eps_avg", "grad_avg", "t", "mu"), 0.0))(),
         wf=type("F", (), dict.fromkeys(("count", "mean", "m2"), 0.0))()))()),
+    lambda: entry.derivative_data(64),
+    lambda: entry.deconvolution_data(64),
+    lambda: entry.nkn_data(),
+    lambda: entry.nkn_example(1),
+    lambda: entry.differentiation_example(),
+    lambda: entry.quadrature_convolution_example(),
+    lambda: nkn_layers_from_numpy([stt.LinearLayer(np.zeros((1, 2)))]),
+    lambda: fourier_basis_from_numpy(type("B", (), dict(
+        omega=np.zeros((2, 1)), phase=np.zeros(2), scale=np.ones(2)))()),
 ], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
+        "accuracy_probe_main",
         "markov_gp_logpdf", "sde_representation", "mauna_loa_data", "mauna_loa_spec",
         "mauna_loa_fit", "spec_from_numpy", "pseudo_points_data", "pseudo_points_fit",
         "svgp_from_numpy", "likelihood_from_numpy", "nuts_data", "nuts_run", "smc_data",
-        "smc_particles", "chain_state_from_numpy", "warmup_state_from_numpy"])
+        "smc_particles", "chain_state_from_numpy", "warmup_state_from_numpy", "derivative_data",
+        "deconvolution_data", "nkn_data", "nkn_example", "differentiation_example",
+        "quadrature_convolution_example", "nkn_layers_from_numpy", "fourier_basis_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -157,6 +173,31 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
         "kernelmatrix": 0, "kernelmatrix_batched": 0, "chol_block": 0, "tri_inv_block": 0,
         "km_se_d1": 0}
+
+
+def test_derivative_pathwise_deconvolution_and_nkn_on_cpu_count_no_launch():
+    """The new paths at a small size on CPU tensors, on the blocked route:
+    finite results, and no launch counted."""
+    kern.reset_counters()
+    with stt.config.chol_backend("blocked"), stt.config.bwd_params(block=256):
+        d = entry.derivative_data(512, 32, torch.float32, device="cpu")
+        d_val, d_grad = entry.derivative_step(d[4], d[:3])
+        d_ms = entry.derivative_predict(d[4], d[:4])
+        x, y, xp, theta = entry.flagship_data(512, 32, torch.float32, device="cpu")
+        draws = entry.pathwise_samples(theta, x, y, xp, num_samples=4, num_features=64)
+        c = entry.deconvolution_data(512, 32, 128, torch.float32, device="cpu")
+        c_val, c_grad = entry.deconvolution_step(c[3], c[:3])
+        c_ms = entry.deconvolution_predict(c[3], c[:3])
+        nx, ny, n_train, period = entry.nkn_data(256, torch.float32, device="cpu")
+        spec = entry.nkn_spec(nx[:n_train], period)
+        n_val, n_grad = entry.nkn_step(params.init(spec)[0], nx, ny, spec)
+    for val, grad in ((d_val, d_grad), (c_val, c_grad)):
+        assert np.isfinite(val.item()) and all(np.isfinite(g.item()) for g in grad.values())
+    assert np.isfinite(n_val.item()) and bool(torch.isfinite(n_grad).all())
+    assert d_ms.mean.shape == (96,) and c_ms.mean.shape == (64,)
+    assert draws["f1"].shape == (4, 32)
+    torch.testing.assert_close(draws["f1"] + draws["f2"], draws["f3"])
+    assert all(c.total == 0 for c in kern.COUNTERS.values())
 
 
 def test_build_raises_with_the_reason_when_nvcc_is_missing(monkeypatch, tmp_path):
