@@ -85,7 +85,24 @@ the CUDA toolkit.  In one run it
    N = 16384 on 2048 quadrature nodes): step and posterior against f64, and
    which base cases the f32 gradient's error follows; (d) the NKN example's
    own run and one step at N = 8192 against f64; and the examples
-   `differentiation.py` and `quadrature_convolution.py` with their checks.
+   `differentiation.py` and `quadrature_convolution.py` with their checks;
+12. runs the distributed tier (`stheno_tpu_torch.parallel`) on a one-rank
+   NCCL 'rows' mesh (one card: NCCL runs one rank a GPU), each part against
+   f64 on the card: (a) the flagship's −logpdf and gradient through
+   `sharded_logpdf` at N = 16384 (the slab from kernel 1, the cyclic panel
+   loop, the collectives) against f64 and against the single-card step,
+   timed beside it and profiled, then `big_gp_logpdf` and
+   `distributed_mvn_logpdf` on the same K; (b) `examples/big_n_sharded.py`'s
+   full-scale run at N = 32768: `sharded_logpdf`, `sharded_posterior` of f1
+   at 1024 points and `sharded_rand`, whitened; (c) the matrix-free ring:
+   `ring_gp_logpdf` and its y-gradient at N = 16384 with the reference
+   probe's ring_p1 settings against the dense logpdf (the limit: five
+   standard deviations of the SLQ estimate over four more probe seeds) and
+   −K̂⁻¹y, and `ring_posterior_mean_var` at N = 32768 and 1024 points; (d)
+   `svgp_elbo_dp` at phase 9's SVGP configuration against `svgp_elbo`, f32
+   and f64; (e) `run_nuts_sharded` and `run_smc_sharded` equal bit for bit
+   to phase 10's runs.  Every distributed path launches kernel 1 (the
+   samplers its batched launch) and counts its collectives.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -158,6 +175,16 @@ DERIV_N, DERIV_M = 16384, 1024
 PW_S, PW_F = 64, 1024
 DECONV_Q = 2048
 NKN_N, NKN_STEPS = 8192, 120
+#: phase 12: the distributed tier on a one-rank NCCL 'rows' mesh: the full
+#: width of `examples/big_n_sharded.py`'s full-scale run (its `--n 32768`),
+#: prediction points, the seeds whose SLQ estimates set the ring value's
+#: limit, and the ring posterior's CG tolerance (the ring logpdf takes the
+#: probe's ring_p1 settings and y-gradient limit, `perf_probe.RING_P1` and
+#: `RING_YGRAD_RTOL`)
+PAR_BIG_N = 32768
+PAR_XP = 1024
+PAR_RING_SEEDS = 4
+PAR_RING_POST_TOL = 1e-5
 #: kernel 1's forward-mode rule against forward mode through the plain
 #: version (absolute; fp32 tangents of order 1)
 JVP_TOL = 1e-5
@@ -896,6 +923,8 @@ def samplers_path(torch, dev, card):
         t0 = time.perf_counter()
         res = E.smc_run(build, smc_data, num_particles=SMC_PARTICLES)
         torch.cuda.synchronize()
+        if name == "SE":
+            smc_se = res
         med = np.median(np.exp(res.particles.cpu().numpy()), axis=0)
         smc[name] = {"log_evidence": res.log_evidence.item(), "stages": int(res.num_stages),
                      "seconds": time.perf_counter() - t0, "median_v_l_noise": med.tolist()}
@@ -922,7 +951,7 @@ def samplers_path(torch, dev, card):
            "launches_per_eval": run_counts["kernelmatrix_batched"] / evals,
            "launches_smc_se": smc_counts["kernelmatrix_batched"], "smc_shape": rows["smc"]}
     torch.cuda.empty_cache()
-    return run_counts, smc_counts, row
+    return run_counts, smc_counts, row, {"nuts": ex.theta, "smc_se": smc_se}
 
 
 def derivatives_path(torch, dev, card):
@@ -1223,6 +1252,383 @@ def derivatives_path(torch, dev, card):
     emit({"differentiation_example": E.differentiation_example(dev),
           "quadrature_convolution_example": E.quadrature_convolution_example(dev)})
     return counts, jvp_rows
+
+
+def parallel_path(torch, dev, card, nuts_ref=None, smc_ref=None):
+    """Phase 12: the distributed tier (`stheno_tpu_torch.parallel`) on a
+    one-rank 'rows' mesh: NCCL on the card (gloo on the CPU, for a
+    rehearsal), each part against f64 on the card.  `nuts_ref` and
+    `smc_ref` are phase 10's unsharded runs of the NUTS example and the SE
+    model's SMC (run here when not given).  Returns each distributed path's
+    launch counts, by path."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import stheno_tpu_torch as stt
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch import entry as E
+    from stheno_tpu_torch import params as P
+    from stheno_tpu_torch import perf_probe as pp
+    from stheno_tpu_torch.cuda.kernelmatrix import kernelmatrix_forward, kernelmatrix_plain
+    from stheno_tpu_torch.inference import SVGP, BernoulliLikelihood, svgp_elbo, svgp_init
+    from stheno_tpu_torch.kernels import Matern32Kernel, SEKernel, with_lengthscale
+    from stheno_tpu_torch.parallel import (
+        big_gp_logpdf, chains_mesh, data_mesh, distributed_mvn_logpdf, multihost,
+        ring_posterior_mean_var,
+        rows_mesh, run_nuts_sharded, run_smc_sharded, shard_rows, sharded_cov, sharded_logpdf,
+        sharded_posterior, sharded_rand, svgp_elbo_dp)
+    from stheno_tpu_torch.parallel import collectives as coll
+    from stheno_tpu_torch.parallel.ring import ring_gp_logpdf
+
+    f32, f64 = torch.float32, torch.float64
+    out = {"card": card}
+    counts = {}
+    store = Path(__file__).resolve().parent / "build" / "dist_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    # the group: one rank, a file store, the card as its device; a failed
+    # NCCL initialisation raises (nothing falls back to gloo)
+    multihost.initialize(f"file://{store}", num_processes=1, process_id=0, device_type=dev.type)
+    require(dist.get_world_size() == 1 and dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                                                  else "gloo"),
+            f"phase 12's group: {dist.get_backend()} over {dist.get_world_size()} ranks")
+    mesh = rows_mesh(device_type=dev.type)
+    t_phase = time.perf_counter()
+
+    def reset():
+        torch.cuda.synchronize()
+        kern.reset_counters()
+        coll.reset_counters()
+
+    def read(path, need=("kernelmatrix",)):
+        """The kernels' launches and the collectives' calls since `reset`."""
+        torch.cuda.synchronize()
+        c, shapes = counts_now(kern)
+        cc = {k: v.total for k, v in coll.COUNTERS.items()}
+        counts[path] = c
+        emit({f"parallel_{path}_launches": c, "launches_by_shape": shapes, "collectives": cc})
+        for name in need:
+            require(c[name] > 0, f"kernel {name} was not launched on the distributed path {path}")
+        require(sum(cc.values()) > 0, f"no collective ran on the distributed path {path}")
+        return c, cc
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def grad_err(g, g64):
+        """Max error over every gradient component, of the largest."""
+        a = torch.cat([g[k].double().reshape(-1) for k in g64])
+        b = torch.cat([g64[k].double().reshape(-1) for k in g64])
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def max_err(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    try:
+        # (a) the flagship through the distributed route, N = 16384 f32
+        x, y, _, theta = E.flagship_data(N, 1, f32, dev)
+
+        def dist_step(th):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in th.items()}
+            fx = E.build(leaves)(stt.GPPPInput("f3", x), leaves["noise"])
+            val = -sharded_logpdf(mesh, fx, y)
+            return val.detach(), dict(zip(leaves, torch.autograd.grad(val, list(leaves.values()))))
+
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        val, grad = dist_step(theta)
+        dist_peak = torch.cuda.max_memory_allocated() / 2**30
+        c_a, cc_a = read("flagship_step")
+        single_step, _ = E.flagship(N, f32, dev)
+        sval, sgrad = single_step(theta)
+        # f64: the plain kernel matrix, torch.linalg.cholesky and autograd
+        th64 = {k: v.detach().to(f64).requires_grad_(True) for k, v in theta.items()}
+        x64, y64 = x.to(f64), y.to(f64)
+        K64 = kernelmatrix_plain((x64 / th64["l1"])[:, None], None, "se", th64["v1"])
+        K64 = K64 + kernelmatrix_plain((x64 / th64["l2"])[:, None], None, "matern32", 1.0)
+        K64 = K64 + th64["noise"] * torch.eye(N, dtype=f64, device=dev)
+        L64 = torch.linalg.cholesky(K64)
+        a64 = torch.linalg.solve_triangular(L64, y64[:, None], upper=False)[:, 0]
+        ref = 0.5 * (a64 @ a64) + torch.log(torch.diagonal(L64)).sum() + 0.5 * N * math.log(2 * math.pi)
+        ref_grad = dict(zip(th64, torch.autograd.grad(ref, list(th64.values()))))
+        del K64, L64, a64
+        ref = ref.item()
+        torch.cuda.empty_cache()
+        dist_ms = host_ms(lambda: dist_step(theta), reps=3)
+        single_ms = host_ms(lambda: single_step(theta), reps=3)
+        emit({"profile_parallel_flagship_step": profile_ms(lambda: dist_step(theta))})
+        with torch.no_grad():
+            th = {k: v.detach() for k, v in theta.items()}
+            kernel = (th["v1"] * with_lengthscale(SEKernel(), th["l1"])
+                      + with_lengthscale(Matern32Kernel(), th["l2"]))
+            reset()
+            lp_big = big_gp_logpdf(mesh, kernel, x, y, th["noise"], block_size=128).item()
+            read("big_gp_logpdf")
+            K_loc = sharded_cov(mesh, E.build(th)(stt.GPPPInput("f3", x), th["noise"]))
+            zeros = torch.zeros_like(y)
+            reset()
+            lp_mvn = distributed_mvn_logpdf(mesh, K_loc, zeros, y, block_size=1024).item()
+            read("mvn_logpdf", need=())
+            big_ms = host_ms(lambda: big_gp_logpdf(mesh, kernel, x, y, th["noise"], block_size=128),
+                             reps=3)
+            mvn_ms = host_ms(lambda: distributed_mvn_logpdf(mesh, K_loc, zeros, y, block_size=1024),
+                             reps=3)
+            del K_loc
+        a = {"n": N, "dtype": "float32", "nlml_dist": val.item(), "nlml_single": sval.item(),
+             "nlml_f64": ref, "value_rel_err_f64": rel(val.item(), ref),
+             "value_rel_err_single": rel(val.item(), sval.item()),
+             "grad_err_f64": grad_err(grad, ref_grad), "grad_err_single": grad_err(grad, sgrad),
+             "single_grad_err_f64": grad_err(sgrad, ref_grad),
+             "grad_dist": {k: g.item() for k, g in grad.items()},
+             "grad_f64": {k: g.item() for k, g in ref_grad.items()},
+             "dist_step_ms": dist_ms, "single_step_ms": single_ms, "peak_dist_step_gib": dist_peak,
+             "kernel1_launches": c_a["kernelmatrix"], "collectives": cc_a,
+             "big_gp_logpdf": {"block_size": 128, "value_rel_err_f64": rel(-lp_big, ref), "ms": big_ms},
+             "mvn_logpdf": {"block_size": 1024, "value_rel_err_f64": rel(-lp_mvn, ref), "ms": mvn_ms},
+             "value_tolerance": 1e-4, "grad_tolerance": 5e-3}
+        out["a_flagship"] = a
+        emit({"parallel_flagship": a})
+        require(a["value_rel_err_f64"] <= 1e-4, f"distributed flagship value {a['value_rel_err_f64']}")
+        require(a["grad_err_f64"] <= 5e-3, f"distributed flagship gradient {a['grad_err_f64']}")
+        require(a["value_rel_err_single"] <= 1e-4 and a["grad_err_single"] <= 5e-3,
+                "the distributed step does not match the single-card step")
+        for key in ("big_gp_logpdf", "mvn_logpdf"):
+            require(a[key]["value_rel_err_f64"] <= 1e-4, f"{key} value {a[key]['value_rel_err_f64']}")
+        del th64, ref_grad, single_step
+        torch.cuda.empty_cache()
+
+        # (b) big_n_sharded's full-scale run: N = 32768, the composite
+        # programme, the example's panel rule; f64 by cuSOLVER on the card
+        nb = PAR_BIG_N
+        bg = max(128, nb // 32)
+        tb = {k: torch.tensor(v, dtype=f32, device=dev) for k, v in dict(v=1.5, l=1.0).items()}
+        xg = torch.linspace(-10.0, 10.0, nb, dtype=f32, device=dev)
+        xq = stt.GPPPInput("f1", torch.linspace(-8.0, 8.0, PAR_XP, dtype=f32, device=dev))
+        with torch.no_grad():
+            fxg = E.big_n_build(tb)(stt.GPPPInput("f3", xg), 0.1)
+            reset()
+            t0 = time.perf_counter()
+            yg = sharded_rand(torch.Generator(device=dev).manual_seed(1), mesh, fxg, block_size=bg)
+            torch.cuda.synchronize()
+            rand_ms = (time.perf_counter() - t0) * 1e3
+            read("big_n_rand")
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            lp32 = sharded_logpdf(mesh, fxg, yg, block_size=bg).item()
+            big_peak = torch.cuda.max_memory_allocated() / 2**30
+            read("big_n_logpdf")
+            logpdf_ms = host_ms(lambda: sharded_logpdf(mesh, fxg, yg, block_size=bg), reps=3)
+            reset()
+            t0 = time.perf_counter()
+            m32, v32 = sharded_posterior(mesh, fxg, yg, block_size=bg).mean_and_var(xq)
+            torch.cuda.synchronize()
+            post_ms = (time.perf_counter() - t0) * 1e3
+            read("big_n_posterior")
+            torch.cuda.empty_cache()
+            t64 = {k: v.to(f64) for k, v in tb.items()}
+            xg64 = xg.to(f64)
+            xq64 = stt.GPPPInput("f1", xq.x.to(f64))
+            g64 = E.big_n_build(t64)
+            fx64 = g64(stt.GPPPInput("f3", xg64), 0.1)
+            m_obs = fx64.mean()
+            L64 = torch.linalg.cholesky(fx64.cov())
+            z = torch.linalg.solve_triangular(L64, (yg.to(f64) - m_obs)[:, None], upper=False)[:, 0]
+            lp64 = (-0.5 * (nb * math.log(2 * math.pi) + 2 * torch.log(torch.diagonal(L64)).sum()
+                            + z @ z)).item()
+            Kox = g64.cov2(stt.GPPPInput("f3", xg64), xq64)
+            alpha = torch.linalg.solve_triangular(L64.T, z[:, None], upper=True)[:, 0]
+            mean64 = g64.mean(xq64) + Kox.T @ alpha
+            A = torch.linalg.solve_triangular(L64, Kox, upper=False)
+            var64 = g64.var(xq64) - (A * A).sum(0)
+            del L64, Kox, A, fx64
+        n_z = z.numel()
+        zm, zv = z.mean().item(), z.var(unbiased=False).item()
+        b = {"n": nb, "block_size": bg, "logpdf_f32": lp32, "logpdf_f64": lp64,
+             "value_rel_err": rel(lp32, lp64), "mean_max_abs_err": max_err(m32, mean64),
+             "mean_tolerance": 1e-3 * mean64.abs().max().item(), "var_max_abs_err": max_err(v32, var64),
+             "var_tolerance": 1e-3 * 1.5, "rand_whitened": {"values": n_z, "mean": zm, "var": zv,
+                                                           "mean_tolerance": 5 / math.sqrt(n_z),
+                                                           "var_tolerance": 5 * math.sqrt(2 / n_z)},
+             "logpdf_ms": logpdf_ms, "posterior_ms": post_ms, "rand_ms": rand_ms,
+             "peak_logpdf_gib": big_peak, "card": card}
+        out["b_big_n"] = b
+        emit({"parallel_big_n_sharded": b})
+        require(b["value_rel_err"] <= 1e-4, f"N = {nb} sharded logpdf value {b['value_rel_err']}")
+        require(b["mean_max_abs_err"] <= b["mean_tolerance"], f"N = {nb} posterior mean {b}")
+        require(b["var_max_abs_err"] <= b["var_tolerance"], f"N = {nb} posterior var {b}")
+        require(bool(torch.isfinite(z).all()) and abs(zm) <= 5 / math.sqrt(n_z)
+                and abs(zv - 1) <= 5 * math.sqrt(2 / n_z), f"N = {nb} sharded_rand whitened {zm}, {zv}")
+        del fxg, yg, m32, v32, mean64, var64, z
+        torch.cuda.empty_cache()
+
+        # (c) the matrix-free ring: the reference probe's ring_p1 settings
+        # (1.5·SE(1.0), noise 1.0) at N = 16384, and the posterior at N = 32768
+        kr = 1.5 * with_lengthscale(SEKernel(), 1.0)
+        xr = torch.linspace(-5.0, 5.0, N, dtype=f32, device=dev)
+        yr = torch.sin(xr)
+        x_sh, y_sh = shard_rows(mesh, xr), shard_rows(mesh, yr)
+
+        def ring_lp(seed, yy):
+            return ring_gp_logpdf(mesh, kr, x_sh, yy, 1.0, torch.Generator(device=dev).manual_seed(seed),
+                                  **pp.RING_P1)
+
+        reset()
+        yy = y_sh.detach().clone().requires_grad_(True)
+        lp_r = ring_lp(0, yy)
+        (gy,) = torch.autograd.grad(lp_r, yy)
+        read("ring_logpdf")
+        with torch.no_grad():
+            scatter = [ring_lp(s, y_sh).item() for s in range(1, PAR_RING_SEEDS + 1)]
+            ring_ms = host_ms(lambda: ring_lp(0, y_sh), reps=3)
+            xr64 = xr.to(f64)[:, None].contiguous()
+            Kr = kernelmatrix_forward(xr64, None, "se", torch.tensor(1.5, dtype=f64, device=dev))
+            Kr.diagonal().add_(1.0)
+            lam_bound = Kr.abs().sum(1).max().item()  # ≥ λmax (Gershgorin); λmin ≥ 1
+            Lr = torch.linalg.cholesky(Kr)
+            del Kr
+            zr = torch.linalg.solve_triangular(Lr, yr.to(f64)[:, None], upper=False)
+            lp_dense = (-0.5 * (N * math.log(2 * math.pi) + 2 * torch.log(torch.diagonal(Lr)).sum()
+                                + (zr * zr).sum())).item()
+            alpha_r = torch.linalg.solve_triangular(Lr.T, zr, upper=True)[:, 0]
+            del Lr, zr
+        ygrad_tol = pp.RING_YGRAD_RTOL
+        spread = float(np.std(scatter + [lp_r.item()], ddof=1))
+        c = {"n": N, "settings": pp.RING_P1, "logpdf_ring": lp_r.item(), "logpdf_dense_f64": lp_dense,
+             "abs_err": abs(lp_r.item() - lp_dense), "slq_seeds": scatter, "slq_std": spread,
+             "value_tolerance": 5 * spread, "value_rel_err": rel(lp_r.item(), lp_dense),
+             "ygrad_rel_err": max_err(gy, -alpha_r) / alpha_r.abs().max().item(),
+             "ygrad_tolerance": ygrad_tol, "cond_bound": lam_bound, "logpdf_ms": ring_ms}
+        require(c["abs_err"] <= c["value_tolerance"],
+                f"ring logpdf {lp_r.item()} vs dense {lp_dense}: beyond 5 SLQ standard deviations")
+        require(c["ygrad_rel_err"] <= ygrad_tol, f"ring y-gradient {c['ygrad_rel_err']} > {ygrad_tol}")
+        del gy, yy, alpha_r
+        xp_ = torch.linspace(-5.0, 5.0, PAR_BIG_N, dtype=f32, device=dev)
+        yp_ = torch.sin(xp_)
+        xs = torch.linspace(-4.5, 4.5, PAR_XP, dtype=f32, device=dev)
+        with torch.no_grad():
+            reset()
+            t0 = time.perf_counter()
+            m_r, v_r, its = ring_posterior_mean_var(mesh, kr, shard_rows(mesh, xp_), shard_rows(mesh, yp_),
+                                                    1.0, xs, tol=PAR_RING_POST_TOL, maxiter=400)
+            torch.cuda.synchronize()
+            ring_post_ms = (time.perf_counter() - t0) * 1e3
+            read("ring_posterior")
+            xp64 = xp_.to(f64)[:, None].contiguous()
+            v15 = torch.tensor(1.5, dtype=f64, device=dev)
+            Kp = kernelmatrix_forward(xp64, None, "se", v15)
+            Kp.diagonal().add_(1.0)
+            Lp = torch.linalg.cholesky(Kp)
+            del Kp
+            Ks = kernelmatrix_forward(xp64, xs.to(f64)[:, None].contiguous(), "se", v15)  # (N, Np)
+            ap = torch.cholesky_solve(yp_.to(f64)[:, None], Lp)[:, 0]
+            mp64 = Ks.T @ ap
+            Ap = torch.linalg.solve_triangular(Lp, Ks, upper=False)
+            vp64 = 1.5 - (Ap * Ap).sum(0)
+            del Lp, Ks, Ap
+        c.update(posterior={"n": PAR_BIG_N, "points": PAR_XP, "tol": PAR_RING_POST_TOL,
+                            "cg_iters": list(its), "ms": ring_post_ms,
+                            "mean_max_abs_err": max_err(m_r, mp64),
+                            "mean_tolerance": 1e-3 * mp64.abs().max().item(),
+                            "var_max_abs_err": max_err(v_r, vp64), "var_tolerance": 1e-3 * 1.5})
+        out["c_ring"] = c
+        emit({"parallel_ring": c})
+        cp = c["posterior"]
+        require(cp["mean_max_abs_err"] <= cp["mean_tolerance"], f"ring posterior mean {cp}")
+        require(cp["var_max_abs_err"] <= cp["var_tolerance"], f"ring posterior var {cp}")
+        del m_r, v_r, mp64, vp64
+        torch.cuda.empty_cache()
+
+        # (d) svgp_elbo_dp at phase 9's SVGP configuration (131072 points,
+        # 2 × 2048 inducing points, a Bernoulli minibatch of 4096)
+        dmesh = data_mesh(device_type=dev.type)
+        data = E.pseudo_points_data(PP_N, PP_M, f32, dev)
+        theta0, _ = P.init(E.pseudo_points_spec(data[2]))
+        unflattens = {dt: P.init(E.pseudo_points_spec(data[2].to(dt)))[1] for dt in (f32, f64)}
+        labels = (data[1] > 0).to(f32)
+        lik = BernoulliLikelihood()
+        scale = PP_N / PP_BATCH
+        rng = np.random.default_rng(2)
+        idx = torch.as_tensor(np.sort(rng.choice(PP_N, PP_BATCH, replace=False)), device=dev)
+        gq = torch.Generator(device="cpu").manual_seed(3)
+        q_mu0 = (0.1 * torch.randn(2 * PP_M, generator=gq, dtype=f64)).to(dev)
+        q_sqrt0 = 0.9 * torch.eye(2 * PP_M, dtype=f64, device=dev)
+
+        def svgp_neg(dt, dp):
+            leaves = [a.detach().to(dt).requires_grad_(True) for a in (theta0, q_mu0, q_sqrt0)]
+            t = unflattens[dt](leaves[0])
+            f = E.build_pseudo_points(t)
+            u = f(stt.BlockData(stt.GPPPInput("f1", t["z"]), stt.GPPPInput("f2", t["z"])),
+                  E.PP_INDUCING_NOISE)
+            fx = f(stt.GPPPInput("f3", data[0][idx].to(dt)), E.PP_INDUCING_NOISE)
+            q = SVGP(u, leaves[1], leaves[2])
+            yb = labels[idx].to(dt)
+            v = -(svgp_elbo_dp(dmesh, q, fx, yb, scale=scale, likelihood=lik) if dp
+                  else svgp_elbo(q, fx, yb, scale=scale, likelihood=lik))
+            return v.item(), dict(zip(("theta", "q_mu", "q_sqrt"), torch.autograd.grad(v, leaves)))
+
+        reset()
+        dp32 = svgp_neg(f32, True)
+        read("svgp_dp")
+        sd32, dp64, sd64 = svgp_neg(f32, False), svgp_neg(f64, True), svgp_neg(f64, False)
+        svgp_ms = host_ms(lambda: svgp_neg(f32, True), reps=3)
+        d = {"n": PP_N, "inducing": 2 * PP_M, "batch": PP_BATCH,
+             "dp_vs_single_f32": {"value": rel(dp32[0], sd32[0]), "grad": grad_err(dp32[1], sd32[1])},
+             "dp_vs_single_f64": {"value": rel(dp64[0], sd64[0]), "grad": grad_err(dp64[1], sd64[1])},
+             "f32_vs_f64": {"value": rel(dp32[0], dp64[0]), "grad": grad_err(dp32[1], dp64[1])},
+             "tolerance": {"dp_vs_single_f32": 1e-6, "dp_vs_single_f64": 1e-12,
+                           "f32_vs_f64_value": PP_VAL_TOL, "f32_vs_f64_grad": 5e-3},
+             "step_ms": svgp_ms}
+        out["d_svgp"] = d
+        emit({"parallel_svgp": d})
+        for key, tol in (("dp_vs_single_f32", 1e-6), ("dp_vs_single_f64", 1e-12)):
+            require(d[key]["value"] <= tol and d[key]["grad"] <= tol, f"svgp_elbo_dp {key}: {d[key]}")
+        require(d["f32_vs_f64"]["value"] <= PP_VAL_TOL and d["f32_vs_f64"]["grad"] <= 5e-3,
+                f"svgp_elbo_dp f32 against f64: {d['f32_vs_f64']}")
+        del data, dp32, sd32, dp64, sd64
+        torch.cuda.empty_cache()
+
+        # (e) the sharded samplers at P = 1 against the unsharded runs
+        cmesh = chains_mesh(device_type=dev.type)
+        n_s, chains_s, warm_s, samp_s = NUTS_SMALL
+        data_s = E.nuts_data(n_s, f64, dev)
+        ld, theta_n0, _ = E.nuts_logdensity(data_s)
+        if nuts_ref is None:
+            nuts_ref = E.nuts_run(warm_s, samp_s, chains_s, data=data_s, seed=NUTS_SEED).theta
+        reset()
+        t0 = time.perf_counter()
+        draws, _ = run_nuts_sharded(NUTS_SEED, ld, theta_n0, cmesh, num_warmup=warm_s,
+                                    num_samples=samp_s, num_chains=chains_s)
+        torch.cuda.synchronize()
+        nuts_s = time.perf_counter() - t0
+        read("nuts_sharded", need=("kernelmatrix_batched",))
+        smc_data = E.smc_data(50, f64, dev)
+        init = E.smc_particles(SMC_PARTICLES, f64, dev)
+        loglike = E.smc_loglike(E.SMC_BUILDS["SE"], smc_data)
+        kw = dict(num_mcmc=5, hmc_step_size=0.25, hmc_num_steps=10)
+        if smc_ref is None:
+            smc_ref = E.smc_run(E.SMC_BUILDS["SE"], smc_data, num_particles=SMC_PARTICLES)
+        reset()
+        t0 = time.perf_counter()
+        res = run_smc_sharded(5, loglike, E.smc_logprior, init, cmesh, **kw)
+        torch.cuda.synchronize()
+        smc_s = time.perf_counter() - t0
+        read("smc_sharded", need=("kernelmatrix_batched",))
+        e = {"nuts": {"chains": chains_s, "warmup": warm_s, "samples": samp_s, "seconds": nuts_s,
+                      "bit_identical": bool(torch.equal(draws, nuts_ref))},
+             "smc": {"particles": SMC_PARTICLES, "seconds": smc_s,
+                     "bit_identical": bool(torch.equal(res.particles, smc_ref.particles)
+                                           and torch.equal(res.log_evidence, smc_ref.log_evidence)),
+                     "log_evidence": res.log_evidence.item()}}
+        out["e_samplers"] = e
+        emit({"parallel_samplers": e})
+        require(e["nuts"]["bit_identical"], "run_nuts_sharded at P = 1 differs from run_nuts")
+        require(e["smc"]["bit_identical"], "run_smc_sharded at P = 1 differs from run_smc")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"parallel_path": {"phase_s": out["phase_s"], "card": card}})
+    return counts
 
 
 def main():
@@ -1957,7 +2363,7 @@ def main():
     kernels[0]["max_abs_err_pseudo_points"] = km_err_pp
 
     # ---- 10. the samplers' path (BASELINE #5, SMC) ------------------------------
-    sampler_counts, smc_counts, batched_row = samplers_path(torch, dev, card)
+    sampler_counts, smc_counts, batched_row, sampler_runs = samplers_path(torch, dev, card)
     for row in kernels:
         row["launches_samplers"] = sampler_counts[row["name"]]
         row["launches_smc"] = smc_counts[row["name"]]
@@ -1971,6 +2377,14 @@ def main():
     kernels[0]["max_abs_err_jvp"] = max(
         max(r["first_max_abs_err"], r["nested_max_abs_err"]) for r in jvp_rows)
     kernels.insert(1, batched_row)
+
+    # ---- 12. the distributed tier on a one-rank NCCL group --------------------
+    torch.cuda.empty_cache()
+    par_counts = parallel_path(torch, dev, card, nuts_ref=sampler_runs["nuts"],
+                               smc_ref=sampler_runs["smc_se"])
+    for row in kernels:
+        for path, c in par_counts.items():
+            row[f"launches_parallel_{path}"] = c[row["name"]]
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -99,7 +99,7 @@ from stheno_tpu_torch.finite_gp import (
     rand,
 )
 from stheno_tpu_torch.gppp import gppp
-from stheno_tpu_torch.graph import GP, convolve_quadrature, cross_cov, derivative
+from stheno_tpu_torch.graph import GP, GPC, convolve_quadrature, cross_cov, derivative
 from stheno_tpu_torch.inference import fit, run_nuts, run_smc
 from stheno_tpu_torch.inputs import BlockData, GPPPInput, split
 from stheno_tpu_torch.kernels import (
@@ -860,4 +860,234 @@ def nkn_example(num_steps=120, learning_rate=2e-2, dtype=torch.float64, device="
     _check(out["loss_last"] < out["loss_first"], f"the loss did not fall: {out}")
     _check(out["rmse_train"] < 0.25, f"training RMSE {out['rmse_train']}")
     _check(out["rmse_test"] < out["rmse_linear"], f"extrapolation no better than linear: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The distributed tier (parallel/): the three examples that run it, on any
+# mesh (a one-rank group on the card, gloo ranks on the CPU)
+# ---------------------------------------------------------------------------
+
+
+@gppp
+def big_n_build(t):
+    """The sharded examples' programme: f3 = v·SE(·/l) + Matern32."""
+    f1 = GP(t["v"] * with_lengthscale(SEKernel(), t["l"]))
+    f2 = GP(Matern32Kernel())
+    return dict(f1=f1, f2=f2, f3=f1 + f2)
+
+
+def _mesh_for(mesh, dev, axis="rows"):
+    from stheno_tpu_torch.parallel.multihost import global_mesh
+
+    return mesh if mesh is not None else global_mesh((axis,), device_type=dev.type)
+
+
+def _whole(mesh, t, axis="rows"):
+    """A tensor's rank slabs gathered in rank order."""
+    from stheno_tpu_torch.parallel.collectives import Axis, all_gather
+
+    return all_gather(t, Axis(mesh, axis))
+
+
+def big_n_sharded_nlml(mesh, x, y, log_l, log_noise, block_size):
+    """−`big_gp_logpdf` of GP(SE(·/exp(log_l))) under noise exp(log_noise)."""
+    from stheno_tpu_torch.parallel import big_gp_logpdf
+
+    k = with_lengthscale(SEKernel(), torch.exp(log_l))
+    return -big_gp_logpdf(mesh, k, x, y, torch.exp(log_noise), block_size=block_size)
+
+
+def big_n_sharded_example(fast=True, n_gppp=None, mesh=None, device="cuda"):
+    """`examples/big_n_sharded.py` on the ranks of `mesh` (a 'rows' mesh of
+    the job by default), in f64, with the example's own checks: the
+    distributed nlml and gradient against the dense logpdf, 10 (fast) or
+    25 normalised gradient steps recovering the lengthscale, then the
+    composite programme sharded (`sharded_rand`, `sharded_logpdf`,
+    `sharded_posterior` of f1 given f3 at N = `n_gppp`) and against the
+    dense path at N = 512.  The data is a numpy draw from seed 0 (the
+    reference's JAX key cannot be reproduced).  Returns its numbers."""
+    from stheno_tpu_torch.parallel import sharded_logpdf, sharded_posterior, sharded_rand
+
+    dev = resolve_device(device)
+    mesh = _mesh_for(mesh, dev)
+    f64 = torch.float64
+    n, B = (512, 64) if fast else (2048, 128)
+    rng = np.random.default_rng(0)
+    xn = np.sort(rng.uniform(-10, 10, n))
+    yn = _se_draw(xn, 1.0, 1.0, 0.1, rng)
+    x, y = (torch.as_tensor(a, dtype=f64, device=dev) for a in (xn, yn))
+    out = {}
+
+    def value_and_grad(ll, ln):
+        ll = torch.as_tensor(ll, dtype=f64, device=dev).requires_grad_(True)
+        ln = torch.as_tensor(ln, dtype=f64, device=dev).requires_grad_(True)
+        v = big_n_sharded_nlml(mesh, x, y, ll, ln, B)
+        gl, gn = torch.autograd.grad(v, (ll, ln))
+        return v.detach(), gl, gn
+
+    val, gl, gn = value_and_grad(0.0, math.log(0.1))
+    with torch.no_grad():
+        f = GP(with_lengthscale(SEKernel(), 1.0), gpc=GPC())
+        lp_ref = logpdf(f(x, 0.1), y)
+    out.update(nlml=val.item(), grad=(gl.item(), gn.item()), err=abs(val.item() + lp_ref.item()))
+    _check(out["err"] < 1e-6, f"|distributed - dense| = {out['err']}")
+    ll, ln = torch.tensor(0.3, dtype=f64), torch.tensor(math.log(0.3), dtype=f64)
+    steps = 10 if fast else 25
+    for _ in range(steps):
+        _, gl, gn = value_and_grad(ll, ln)
+        norm = torch.clamp(torch.sqrt(gl**2 + gn**2), min=1.0).cpu()
+        ll, ln = ll - 0.05 * gl.cpu() / norm, ln - 0.05 * gn.cpu() / norm
+    out.update(l=math.exp(ll.item()), noise=math.exp(ln.item()), gd_steps=steps)
+    _check(0.5 < out["l"] < 2.0, f"lengthscale {out['l']} after {steps} distributed steps")
+
+    # the composite programme, sharded
+    theta = {k: torch.tensor(v, dtype=f64, device=dev) for k, v in dict(v=1.5, l=1.0).items()}
+    ng = n_gppp if n_gppp is not None else (1024 if fast else 4096)
+    xg = torch.linspace(-10.0, 10.0, ng, dtype=f64, device=dev)
+    xp = torch.linspace(-8.0, 8.0, 256, dtype=f64, device=dev)
+    bg = max(B, ng // 32)
+    with torch.no_grad():
+        fxg = big_n_build(theta)(GPPPInput("f3", xg), 0.1)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        yg = _whole(mesh, sharded_rand(gen, mesh, fxg, block_size=bg))
+        out["gppp_logpdf"] = sharded_logpdf(mesh, fxg, yg, block_size=bg).item()
+        m1, v1 = sharded_posterior(mesh, fxg, yg, block_size=bg).mean_and_var(GPPPInput("f1", xp))
+        _check(bool(torch.isfinite(m1).all() and (v1 > 0).all()), "non-finite sharded posterior")
+        out["gppp_n"] = ng
+        # exactness against the dense path at N = 512
+        xd = torch.linspace(-10.0, 10.0, 512, dtype=f64, device=dev)
+        fxd = big_n_build(theta)(GPPPInput("f3", xd), 0.1)
+        yd = rand(torch.Generator(device=dev).manual_seed(2), fxd)
+        post_sh = sharded_posterior(mesh, fxd, yd, block_size=64)
+        m_sh, v_sh = post_sh.mean_and_var(GPPPInput("f1", xp))
+        post_d = posterior(fxd, yd)
+        m_d, v_d = post_d.mean_and_var(GPPPInput("f1", xp))
+        out["err_lp"] = abs(sharded_logpdf(mesh, fxd, yd, block_size=64).item() - logpdf(fxd, yd).item())
+        out["err_m"] = (m_sh - m_d).abs().max().item()
+        out["err_v"] = (v_sh - v_d).abs().max().item()
+    _check(out["err_lp"] < 1e-6 and out["err_m"] < 1e-8 and out["err_v"] < 1e-8,
+           f"sharded vs dense: {out['err_lp']}, {out['err_m']}, {out['err_v']}")
+    return out
+
+
+def matrix_free_data(n, dtype=torch.float64, device="cuda", seed=3):
+    """`examples/matrix_free_big_n.py`'s data: x sorted uniform on [−8, 8]
+    and y a draw of 1.5·SE(·/0.7) under noise variance 0.1 (numpy)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-8, 8, n))
+    y = _se_draw(x, 1.5, 0.7, 0.1, rng)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y))
+
+
+def matrix_free_nlml(mesh, x_sh, y_sh, logp, generator, **ring):
+    """−`ring_gp_logpdf` of v·SE(·/l) under noise s, (v, l, s) = exp(logp),
+    on each rank's shard."""
+    from stheno_tpu_torch.parallel.ring import ring_gp_logpdf
+
+    v, l, s = torch.exp(logp)
+    k = v * with_lengthscale(SEKernel(), l)
+    return -ring_gp_logpdf(mesh, k, x_sh, y_sh, s, generator, **ring)
+
+
+def matrix_free_example(fast=True, mesh=None, device="cuda"):
+    """`examples/matrix_free_big_n.py` on the ranks of `mesh`, in f64, with
+    its own checks: 20 (fast) or 40 Adam steps on the ring's stochastic
+    logpdf (fresh probes each step) recovering ℓ and the noise, the ring
+    posterior at 64 points (positive variances), and the ring posterior
+    against the dense one at N = 512.  Returns its numbers."""
+    from stheno_tpu_torch.parallel import ring_posterior_mean_var, shard_rows
+
+    dev = resolve_device(device)
+    mesh = _mesh_for(mesh, dev)
+    f64 = torch.float64
+    n = 1024 if fast else 4096
+    x, y = matrix_free_data(n, f64, dev)
+    x_sh, y_sh = shard_rows(mesh, x), shard_rows(mesh, y)
+    logp = torch.log(torch.tensor([1.0, 1.0, 0.3], dtype=f64, device=dev)).requires_grad_(True)
+    opt = torch.optim.Adam([logp], lr=0.08)
+    steps = 20 if fast else 40
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        val = matrix_free_nlml(mesh, x_sh, y_sh, logp, gen, num_probes=8, lanczos_iters=15,
+                               tol=1e-8, maxiter=400)
+        val.backward()
+        opt.step()
+    v, l, s = (t.item() for t in torch.exp(logp.detach()))
+    out = dict(nlml=val.item(), v=v, l=l, noise=s, steps=steps)
+    _check(0.4 < l < 1.2 and 0.05 < s < 0.2, f"hyperparameters off: {out}")
+    k_fit = v * with_lengthscale(SEKernel(), l)
+    xs = torch.linspace(-6.0, 6.0, 64, dtype=f64, device=dev)
+    m, var, its = ring_posterior_mean_var(mesh, k_fit, x_sh, y_sh, s, xs, tol=1e-10, maxiter=600)
+    out["cg_iters"] = its
+    _check(bool((var > 0).all()), "negative posterior variance")
+    xr, yr = x[:512], y[:512]
+    mr, vr, _ = ring_posterior_mean_var(mesh, k_fit, shard_rows(mesh, xr), shard_rows(mesh, yr), s,
+                                        xs, tol=1e-12, maxiter=800)
+    with torch.no_grad():
+        post = posterior(GP(k_fit, gpc=GPC())(xr, s), yr)
+        out["dm"] = (mr - post.mean(xs)).abs().max().item()
+        out["dv"] = (vr - post.var(xs)).abs().max().item()
+    _check(out["dm"] < 1e-6 and out["dv"] < 1e-6, f"ring vs dense posterior {out['dm']}, {out['dv']}")
+    return out
+
+
+def svgp_dp_data(n_total, dtype=torch.float64, device="cuda", seed=0):
+    """`examples/svgp_data_parallel.py`'s data: x uniform on [−6, 6],
+    f(x) = sin(2x)·e^{−x²/8}, labels ~ Bernoulli(Φ(3 f(x))) (numpy)."""
+    from math import erf, sqrt
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-6, 6, n_total)
+    f = np.sin(2 * x) * np.exp(-(x**2) / 8)
+    p = 0.5 * (1.0 + np.vectorize(erf)(3 * f / sqrt(2.0)))
+    y = (rng.uniform(size=n_total) < p).astype(np.float64)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y)), rng
+
+
+def svgp_data_parallel_example(n_total=100_000, steps=60, batch=4096, m_ind=48, mesh=None,
+                               device="cuda"):
+    """`examples/svgp_data_parallel.py` on the ranks of a 'data' mesh, in
+    f64, with its own checks: a Bernoulli SVGP trained by Adam on
+    minibatches sharded over the ranks (`svgp_elbo_dp`; every rank draws
+    the same batch from the same generator and takes its rows), the bound
+    improving and the predictive probability within 0.15 RMSE of the
+    truth.  Returns its numbers."""
+    from stheno_tpu_torch.inference import SVGP, BernoulliLikelihood, svgp_init, svgp_posterior
+    from stheno_tpu_torch.parallel import svgp_elbo_dp
+
+    dev = resolve_device(device)
+    mesh = _mesh_for(mesh, dev, "data")
+    f64 = torch.float64
+    (x_all, y_all), rng = svgp_dp_data(n_total, f64, dev)
+    f = GP(1.5 * with_lengthscale(SEKernel(), 1.0), gpc=GPC())
+    z = torch.linspace(-6.0, 6.0, m_ind, dtype=f64, device=dev)
+    lik = BernoulliLikelihood()
+    fz = f(z, 1e-9)
+    q0 = svgp_init(fz)
+    params = [q0.q_mu.clone().requires_grad_(True), q0.q_sqrt.clone().requires_grad_(True)]
+    opt = torch.optim.Adam(params, lr=0.15)
+    scale = n_total / batch
+    vals = []
+    for _ in range(steps):
+        idx = torch.as_tensor(rng.integers(0, n_total, batch), device=dev)
+        opt.zero_grad(set_to_none=True)
+        loss = -svgp_elbo_dp(mesh, SVGP(fz, *params), f(x_all[idx], 1e-9), y_all[idx],
+                             scale=scale, likelihood=lik)
+        loss.backward()
+        opt.step()
+        vals.append(loss.item())
+    with torch.no_grad():
+        post = svgp_posterior(SVGP(fz, *params))
+        xg = torch.linspace(-5.0, 5.0, 200, dtype=f64, device=dev)
+        p_hat, _ = lik.predictive_mean_var(*post.mean_and_var(xg))
+        fg = torch.sin(2 * xg) * torch.exp(-(xg**2) / 8)
+        p_g = 0.5 * (1.0 + torch.erf(3 * fg / math.sqrt(2.0)))
+        rmse = torch.sqrt(torch.mean((p_hat - p_g) ** 2)).item()
+    out = dict(first=vals[0], last=vals[-1], rmse=rmse, steps=steps)
+    _check(vals[-1] < vals[0], "ELBO did not improve")
+    _check(rmse < 0.15, f"predictive rmse {rmse:.3f}")
     return out

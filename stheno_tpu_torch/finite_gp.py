@@ -30,37 +30,42 @@ from stheno_tpu_torch.tree import frozen_dataclass
 
 
 class _AddDiagInPlace(torch.autograd.Function):
-    """K.diagonal() += d in place, with K̄ passed through and d̄ = diag(K̄)
-    (summed for a scalar d).  Adding d·I instead would allocate and add a
-    second N×N matrix (1 GiB at N = 16384 in f32)."""
+    """K.diagonal(offset) += d in place, with K̄ passed through and
+    d̄ = K̄.diagonal(offset) (summed for a scalar d).  Adding d·I instead
+    would allocate and add a second N×N matrix (1 GiB at N = 16384 in f32).
+    A row slab of a matrix, rows [offset, offset + n) of it, takes its band
+    of the global diagonal at `offset`."""
 
     @staticmethod
-    def forward(K, d):
-        K.diagonal().add_(d.to(K.device))
+    def forward(K, d, offset):
+        K.diagonal(offset=offset).add_(d.to(K.device))
         return K
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        K, d = inputs
+        K, d, offset = inputs
         ctx.d_shape = d.shape
         ctx.d_device = d.device
+        ctx.offset = offset
         ctx.mark_dirty(K)
 
     @staticmethod
     def backward(ctx, K_bar):
         gd = None
         if ctx.needs_input_grad[1]:
-            gd = K_bar.diagonal().sum_to_size(ctx.d_shape).to(ctx.d_device)
-        return K_bar, gd
+            gd = K_bar.diagonal(offset=ctx.offset).sum_to_size(ctx.d_shape).to(ctx.d_device)
+        return K_bar, gd, None
 
 
-def _add_diag(K, d):
-    """K + diag(d): in place on K outside `torch.func`'s transforms; under
-    them (a vmapped batch of covariances, one per chain) out of place, which
-    `torch.func` differentiates and batches itself."""
+def _add_diag(K, d, offset=0):
+    """K + diag(d) at diagonal `offset` (d a tensor or a number): in place on
+    K, a fresh matrix that nothing else holds, outside `torch.func`'s
+    transforms; under them (a vmapped batch of covariances, one per chain)
+    out of place, which `torch.func` differentiates and batches itself."""
+    d = torch.as_tensor(d, dtype=K.dtype)
     if under_transform():
-        return K.diagonal_scatter(K.diagonal() + d.to(K.device))
-    return _AddDiagInPlace.apply(K, d)
+        return K.diagonal_scatter(K.diagonal(offset=offset) + d.to(K.device), offset=offset)
+    return _AddDiagInPlace.apply(K, d, offset)
 
 
 @frozen_dataclass

@@ -71,16 +71,23 @@ class GeneratorDraws:
     acceptance's uniforms and the 2^j leaves' uniforms (NUTS), or the
     acceptance's uniform (HMC).  Every chain's numbers are drawn whether it
     is still active or not, so that a chain's draws do not depend on the
-    others'."""
+    others'.
 
-    def __init__(self, gen, batch, dtype, device):
+    `rows=(a, b)` keeps chains [a, b) of the `batch` drawn: the numbers
+    those chains get in the whole batch's run (`parallel.run_nuts_sharded`
+    runs a slice of the chains in each process)."""
+
+    def __init__(self, gen, batch, dtype, device, rows=None):
         self.gen, self.batch, self.dtype, self.device = gen, batch, dtype, device
+        self.keep = slice(*rows) if rows is not None else slice(None)
 
     def _rand(self, *shape):
-        return torch.rand((self.batch, *shape), generator=self.gen, dtype=self.dtype, device=self.device)
+        u = torch.rand((self.batch, *shape), generator=self.gen, dtype=self.dtype, device=self.device)
+        return u[self.keep]
 
     def momentum(self, d):
-        return torch.randn((self.batch, d), generator=self.gen, dtype=self.dtype, device=self.device)
+        r = torch.randn((self.batch, d), generator=self.gen, dtype=self.dtype, device=self.device)
+        return r[self.keep]
 
     def doubling(self, j):
         return self._rand(), self._rand(), self._rand(1 << j)
@@ -315,16 +322,26 @@ def _nuts_step(ld_and_grad, max_depth, draws, q, logp, grad, eps, inv_mass):
     return prop.q, prop.logp, prop.grad, info
 
 
-def nuts_kernel(logdensity_fn, max_depth: int = 10):
+def _draws(gen, q, chains):
+    """The transition's draws for the chains `q` holds: all of them, or
+    with `chains=(a, b, C)` chains [a, b) of a run of C."""
+    if chains is None:
+        return GeneratorDraws(gen, q.shape[0], q.dtype, q.device)
+    a, b, C = chains
+    return GeneratorDraws(gen, C, q.dtype, q.device, rows=(a, b))
+
+
+def nuts_kernel(logdensity_fn, max_depth: int = 10, chains=None):
     """A NUTS transition over a batch of chains:
     `step(gen, q, logp, grad, eps, inv_mass) -> (q', logp', grad', NUTSInfo)`
     with q, grad, inv_mass (C, d), logp and eps (C,), and `gen` a
     `torch.Generator` on their device.  `logdensity_fn` takes one flat
-    position (d,); it is batched by `torch.func.vmap`."""
+    position (d,); it is batched by `torch.func.vmap`.  `chains=(a, b, C)`
+    says q holds chains [a, b) of a run of C (`_draws`)."""
     ld_and_grad = BatchedLogDensity(logdensity_fn)
 
     def step(gen, q, logp, grad, eps, inv_mass):
-        draws = GeneratorDraws(gen, q.shape[0], q.dtype, q.device)
+        draws = _draws(gen, q, chains)
         return _nuts_step(ld_and_grad, max_depth, draws, q, logp, grad, eps, inv_mass)
 
     step.log_density = ld_and_grad
@@ -357,14 +374,14 @@ def _hmc_step(ld_and_grad, num_steps, draws, q, logp, grad, eps, inv_mass):
     return qn, logpn, gradn, info
 
 
-def hmc_kernel(logdensity_fn, num_steps: int = 32):
+def hmc_kernel(logdensity_fn, num_steps: int = 32, chains=None):
     """Plain HMC over a batch of chains, with a fixed number of leapfrog
     steps and a Metropolis acceptance; the same signature as
-    `nuts_kernel`'s step."""
+    `nuts_kernel`'s step, and `chains` as there."""
     ld_and_grad = BatchedLogDensity(logdensity_fn)
 
     def step(gen, q, logp, grad, eps, inv_mass):
-        draws = GeneratorDraws(gen, q.shape[0], q.dtype, q.device)
+        draws = _draws(gen, q, chains)
         return _hmc_step(ld_and_grad, num_steps, draws, q, logp, grad, eps, inv_mass)
 
     step.log_density = ld_and_grad
@@ -550,29 +567,32 @@ class WarmupState(NamedTuple):
     inv_mass: torch.Tensor  # (C, d)
 
 
-def _kernel(logdensity_fn, kernel, max_depth, num_hmc_steps):
+def _kernel(logdensity_fn, kernel, max_depth, num_hmc_steps, chains=None):
     if kernel == "nuts":
-        return nuts_kernel(logdensity_fn, max_depth=max_depth)
+        return nuts_kernel(logdensity_fn, max_depth=max_depth, chains=chains)
     if kernel == "hmc":
-        return hmc_kernel(logdensity_fn, num_steps=num_hmc_steps)
+        return hmc_kernel(logdensity_fn, num_steps=num_hmc_steps, chains=chains)
     raise ValueError(f"kernel must be 'nuts' or 'hmc', got {kernel!r}")
 
 
-def _warmup_init(seed, step_fn, flat0, num_chains, init_jitter):
+def _warmup_init(seed, step_fn, flat0, num_chains, init_jitter, chains=None):
     """Chains jittered around `flat0` (chain 0 exactly at it), their
-    log-density, and a step size found per chain."""
-    C, d = num_chains, flat0.shape[0]
+    log-density, and a step size found per chain.  With `chains=(a, b, C)`
+    the whole run's numbers are drawn and chains [a, b) kept."""
+    a, b, C = chains if chains is not None else (0, num_chains, num_chains)
+    d = flat0.shape[0]
     dt, dev = flat0.dtype, flat0.device
     gen = generator(seed, _INIT, 0, dev)
     jitter = torch.randn((C, d), generator=gen, dtype=dt, device=dev)
     jitter[0] = 0.0
-    q0 = flat0[None, :] + init_jitter * jitter
+    q0 = (flat0[None, :] + init_jitter * jitter)[a:b]
     ld_and_grad = step_fn.log_density
     logp0, grad0 = ld_and_grad(q0)
-    inv_mass0 = torch.ones((C, d), dtype=dt, device=dev)
-    r0 = torch.randn((C, d), generator=gen, dtype=dt, device=dev) / torch.sqrt(inv_mass0)
+    inv_mass0 = torch.ones((b - a, d), dtype=dt, device=dev)
+    r0 = torch.randn((C, d), generator=gen, dtype=dt, device=dev)[a:b] / torch.sqrt(inv_mass0)
     eps0 = _find_reasonable_eps(ld_and_grad, q0, logp0, grad0, inv_mass0, r0)
-    return WarmupState(q0, logp0, grad0, _da_init(eps0), _welford_init((C,), d, dt, dev), inv_mass0)
+    return WarmupState(q0, logp0, grad0, _da_init(eps0), _welford_init((b - a,), d, dt, dev),
+                       inv_mass0)
 
 
 def _warm_iteration(step_fn, target_accept, st: WarmupState, gen, in_window, window_end):
@@ -669,6 +689,8 @@ def run_nuts(
     sample_offset=0,
     precision="auto",
     check_rhat=True,
+    chains=None,
+    gather=None,
 ):
     """Warmup and sampling of `num_chains` chains, batched.
 
@@ -687,13 +709,18 @@ def run_nuts(
 
     `precision` as in `nuts_warmup`.  `check_rhat` warns when the max
     split-R̂ over the flat coordinates exceeds `RHAT_WARN_THRESHOLD`.
+
+    `chains=(a, b, num_chains)` runs only chains [a, b) of the run, with the
+    numbers they draw in the whole run; `gather` then maps this process's
+    draws to every chain's for the R̂ check (`parallel.run_nuts_sharded`).
     """
     flat0, unravel = ravel_pytree(init_position)
-    step_fn = _kernel(lambda qf: logdensity_fn(unravel(qf)), kernel, max_depth, num_hmc_steps)
+    step_fn = _kernel(lambda qf: logdensity_fn(unravel(qf)), kernel, max_depth, num_hmc_steps,
+                      chains)
     dev = flat0.device
     with _precision_scope(precision), torch.no_grad():
         if resume_state is None:
-            st = _warmup_init(seed, step_fn, flat0, num_chains, init_jitter)
+            st = _warmup_init(seed, step_fn, flat0, num_chains, init_jitter, chains)
             st = _warm_range(seed, step_fn, target_accept, st, num_warmup, 0, num_warmup)
             resume_state = warmup_result(st)
         q, logp, grad, eps, inv_mass = (t.to(dev) for t in resume_state)
@@ -707,7 +734,10 @@ def run_nuts(
             infos.append(info)
         info = NUTSInfo(*(torch.stack(field, dim=1) for field in zip(*infos))) if infos else None
     if check_rhat:
-        _check_mixing(qs, C, num_samples)
+        if chains is None:
+            _check_mixing(qs, C, num_samples)
+        else:
+            _check_mixing(gather(qs), chains[2], num_samples)
     samples = unravel(qs)
     if return_state:
         return samples, info, ChainState(q, logp, grad, eps, inv_mass)

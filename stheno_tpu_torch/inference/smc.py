@@ -94,28 +94,35 @@ def _first(tree):
 
 
 def _stage(flat_loglike, flat_logprior, ck: SMCCheckpoint, gen, num_mcmc, ess_target,
-           hmc_step_size, hmc_num_steps):
-    """One tempering stage: the single code path of `run_smc` and
-    `smc_segment`, so segmented and whole runs are bit-identical."""
-    P_, d = ck.particles.shape
+           hmc_step_size, hmc_num_steps, gather=None, rows=None):
+    """One tempering stage: the single code path of `run_smc`, `smc_segment`
+    and `parallel.run_smc_sharded`, so segmented, whole and sharded runs are
+    bit-identical.  Sharded, `ck` holds this process's particles [a, b) =
+    `rows`, and `gather` maps a per-particle tensor to every particle's:
+    each process computes the same tempering step and global resampling,
+    and keeps its rows."""
+    gather = gather if gather is not None else (lambda t: t)
+    log_like = gather(ck.log_like)
+    P_, d = log_like.shape[0], ck.particles.shape[1]
+    a, b = rows if rows is not None else (0, P_)
     dt, dev = ck.particles.dtype, ck.particles.device
-    beta_new = _next_beta(ck.log_like, ck.beta, ess_target, P_)
+    beta_new = _next_beta(log_like, ck.beta, ess_target, P_)
 
     # incremental weights and the evidence
-    lw = (beta_new - ck.beta) * ck.log_like
+    lw = (beta_new - ck.beta) * log_like
     lw_max = torch.max(lw)
     w = torch.exp(lw - lw_max)
     log_evidence = ck.log_evidence + lw_max + torch.log(torch.mean(w))
 
     u = torch.rand((), generator=gen, dtype=dt, device=dev)
-    particles = ck.particles[_systematic_resample(u, w, P_)]
+    particles = gather(ck.particles)[_systematic_resample(u, w, P_)[a:b]]
 
     # mutate every particle with HMC at the new temperature
     ld_and_grad = BatchedLogDensity(lambda q: flat_logprior(q) + beta_new * flat_loglike(q))
     eps = torch.tensor(hmc_step_size, dtype=dt, device=dev)
-    inv_mass = torch.ones((P_, d), dtype=dt, device=dev)
+    inv_mass = torch.ones((b - a, d), dtype=dt, device=dev)
     logp, grad = ld_and_grad(particles)
-    draws = GeneratorDraws(gen, P_, dt, dev)
+    draws = GeneratorDraws(gen, P_, dt, dev, rows=(a, b))
     for _ in range(num_mcmc):
         particles, logp, grad, _ = _hmc_step(ld_and_grad, hmc_num_steps, draws, particles, logp,
                                              grad, eps, inv_mass)
@@ -159,6 +166,8 @@ def smc_segment(
     max_stages=50,
     hmc_step_size=0.2,
     hmc_num_steps=16,
+    gather=None,
+    rows=None,
 ):
     """Advance an SMC run by at most `num_stages` tempering stages.
 
@@ -166,7 +175,8 @@ def smc_segment(
     receive): stage i draws from the generator of (seed, smc, i), so any
     segmentation, none included, gives the same run.  Stages past the end
     are not run.  `example_particles` gives the particles' tree structure
-    (e.g. the `init_particles` of `smc_init`)."""
+    (e.g. the `init_particles` of `smc_init`).  `gather` and `rows` run a
+    slice of the particles as `_stage` says (`parallel.run_smc_sharded`)."""
     flat_loglike, flat_logprior = _flat_fns(loglike_fn, logprior_fn, example_particles)
     with torch.no_grad():
         for _ in range(int(num_stages)):
@@ -174,7 +184,7 @@ def smc_segment(
                 break
             gen = generator(seed, _SMC, int(state.step), state.particles.device)
             state = _stage(flat_loglike, flat_logprior, state, gen, num_mcmc, ess_target,
-                           hmc_step_size, hmc_num_steps)
+                           hmc_step_size, hmc_num_steps, gather, rows)
     return state
 
 

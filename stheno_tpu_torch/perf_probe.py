@@ -42,13 +42,20 @@ is a group that runs several rows.
   FWD_FLOOR             fwd_now, gemm_shapes, diag_chain, diag_chain_lax
                         and the residual arithmetic
   MARKOV_1M             markov_fwd_{M}, markov_grad_{M} (M = --markov-n)
+  DIST_P1               logpdf_single, logpdf_dist_p1, chol_dist_p1: the
+                        distributed factorisation and logpdf on a one-rank
+                        'rows' mesh against the single-card route
+  RING_P1               ring_p1_fwd, ring_p1_ygrad: the matrix-free ring's
+                        logpdf and y-gradient on a one-rank mesh against
+                        the dense logpdf and −K̂⁻¹y
   km_xla, km_pal        the broadcast SE matrix, and kernel 4 (`km_se_d1`,
                         kernel 1's SE, D = 1 instance)
 
 Group selectors are the lower-case names: base_chain, trsm, gemm_peak,
-fwd_floor, markov_1m.  Left out: chol_high, chol_high_btri and
-chol_grad_bp_* (precision knobs the port does not have), dist_p1 and
-ring_p1 (the distributed tiers are not ported).
+fwd_floor, dist_p1, ring_p1, markov_1m.  Left out: chol_high,
+chol_high_btri and chol_grad_bp_* (precision knobs the port does not
+have).  The distributed rows make a one-rank group (NCCL on the card, gloo
+on the CPU) when the process has none, and destroy it when the run ends.
 
 The Cholesky probes build K with kernel 4 (one write, as XLA's fused
 broadcast is in the reference) and add the noise into its diagonal in
@@ -95,6 +102,15 @@ WIDE_FUSED_GRAD_ATOL = 5e-2
 #: H100) and the largest relative error of the three gradient components
 #: (measured 7.2e-3; the f32 library route is printed beside it)
 ACC_VAL_RTOL, ACC_GRAD_RTOL = 1e-4, 2e-2
+#: ring_p1: the reference probe's settings (`scripts/perf_probe.py:720-723`)
+#: and the limit of the y-gradient's error against the dense f64 −K̂⁻¹y,
+#: max|g + α| / max|α| (this probe and `chip_smoke.py` phase 12).  The f32
+#: CG's solution differs from the f64 solve by its f32 matvecs' rounding
+#: times K̂⁻¹: about u·κ with u = 6e-8 and κ ≤ λmax ≈ 6.2e3 (λmin ≥ 1 from
+#: the unit noise) at N = 16384, i.e. 3.7e-4; its stopping residual, 1e-6·‖y‖,
+#: adds at most 1e-6·κ, and an H100 read 2.5e-4
+RING_P1 = dict(num_probes=8, lanczos_iters=20, tol=1e-6, maxiter=400)
+RING_YGRAD_RTOL = 1e-3
 #: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet)
 FP32_SPEC_FLOP_PER_S = 67e12
 
@@ -197,6 +213,7 @@ class Probe:
         self.trK = n * (1.5 + 0.1)
         self.results: dict[str, dict] = {}
         self.failures: list[str] = []
+        self._own_group = False
 
     # ---- method ------------------------------------------------------------
     def km(self, i, noise=0.1):
@@ -564,6 +581,97 @@ class Probe:
         # km_pal_512x1024, were VMEM choices with no meaning on the card
         self.timed("km_pal", lambda i: _flat_dot(km_se_d1(self.x + i * 1e-7)))
 
+    # ---- the distributed tier on a one-rank 'rows' mesh -----------------------
+    def _rows_mesh(self):
+        """A one-rank 'rows' mesh: the job's group, or one made here (and
+        destroyed when the probe's run ends)."""
+        import torch.distributed as dist
+
+        from stheno_tpu_torch.parallel import rows_mesh
+
+        if not dist.is_initialized():
+            self._own_group = True
+        return rows_mesh(device_type=self.dev.type)
+
+    def v_dist_p1(self):
+        """The distributed factorisation and logpdf (`parallel.cholesky`) on
+        a one-rank mesh, against the single-card route in the same run
+        (reference `scripts/perf_probe.py:655-699`): the validation of the
+        multi-card code that a one-card machine permits."""
+        from stheno_tpu_torch.parallel import distributed_cholesky_auto, distributed_mvn_logpdf
+
+        mesh = self._rows_mesh()
+        y = torch.sin(self.x)
+        zeros = torch.zeros_like(y)
+        block = min(1024, self.n)
+
+        def single_run(i):
+            with torch.no_grad():
+                return C.mvn_logpdf_chol(y, zeros, C.cholesky_psd(self.km(i)))
+
+        def dist_run(i):
+            with torch.no_grad():
+                return distributed_mvn_logpdf(mesh, self.km(i), zeros, y, block_size=block)
+
+        def dist_chol_run(i):
+            with torch.no_grad():
+                return _flat_dot(distributed_cholesky_auto(mesh, self.km(i), block_size=block))
+
+        self.timed("logpdf_single", single_run)
+        v_s, v_d = float(single_run(99)), float(dist_run(99))
+        rel = abs(v_s - v_d) / abs(v_s)
+        self.timed("logpdf_dist_p1", dist_run, extra={
+            "single": v_s, "dist": v_d, "rel_diff_vs_single": rel, "ok": rel <= CHOL_RTOL})
+        self.timed("chol_dist_p1", dist_chol_run, expect=self.trK)
+        _log(f"dist_p1 value check: single {v_s:.6g} vs distributed {v_d:.6g} (rel {rel:.3g})")
+
+    def v_ring_p1(self):
+        """The matrix-free ring (`parallel.ring`: CG, SLQ logdet, the
+        Hutchinson backward) on a one-rank mesh, forward and y-gradient,
+        against the dense logpdf and −K̂⁻¹y in the same run (reference
+        `scripts/perf_probe.py:700-752`; noise 1.0 keeps the SE system
+        within f32 CG's reach)."""
+        from stheno_tpu_torch.kernels import SEKernel, with_lengthscale
+        from stheno_tpu_torch.parallel.ring import ring_gp_logpdf
+
+        mesh = self._rows_mesh()
+        kern = 1.5 * with_lengthscale(SEKernel(), 1.0)
+        y = torch.sin(self.x)
+
+        def ring(i, yy):
+            gen = torch.Generator(device=self.dev).manual_seed(7)
+            return ring_gp_logpdf(mesh, kern, self.x + i * 1e-7, yy, 1.0, gen, **RING_P1)
+
+        def ring_fwd(i):
+            with torch.no_grad():
+                return ring(i, y)
+
+        def ring_ygrad(i):
+            yy = y.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(ring(i, yy), yy)
+            return torch.dot(g, y)
+
+        def dense_ref(i):
+            with torch.no_grad():
+                L = C.cholesky_psd(self.km(i, noise=1.0))
+                alpha = C.chol_solve(L, y)
+                return C.mvn_logpdf_chol(y, torch.zeros_like(y), L), alpha
+
+        yy = y.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(ring(99, yy), yy)
+        v_r = float(ring_fwd(99))
+        v_d, alpha = dense_ref(99)
+        v_d = float(v_d)
+        rel_v = abs(v_r - v_d) / abs(v_d)
+        rel_g = float(torch.max(torch.abs(g + alpha)) / torch.max(torch.abs(alpha)))
+        g_r, g_d = float(torch.dot(g, y)), float(-torch.dot(alpha, y))
+        self.timed("ring_p1_fwd", ring_fwd, extra={
+            "dense": v_d, "rel_diff_vs_dense": rel_v, "ok": abs(v_r - v_d) <= 0.02 * abs(v_d) + 1.0})
+        self.timed("ring_p1_ygrad", ring_ygrad, extra={
+            "dense": g_d, "rel_diff_vs_dense": rel_g, "ok": rel_g <= RING_YGRAD_RTOL})
+        _log(f"ring_p1 value check: ring {v_r:.6g} vs dense {v_d:.6g} (rel {rel_v:.3g}); "
+             f"ygrad <g, y> ring {g_r:.6g} vs dense {g_d:.6g}, max|g + α| / max|α| {rel_g:.3g}")
+
     # ---- registry ----------------------------------------------------------
     def variants(self):
         """(selector, thunk) in the reference's order."""
@@ -580,7 +688,8 @@ class Probe:
                 ("trsm", self.v_trsm), ("logpdf_fwd", self.v_logpdf_fwd),
                 ("bench_kgrad", self.v_bench_kgrad), ("bench_hgrad", self.v_bench_hgrad),
                 ("accuracy", self.v_accuracy), ("gemm_peak", self.v_gemm_peak),
-                ("fwd_floor", self.v_fwd_floor), ("markov_1m", self.v_markov_1m),
+                ("fwd_floor", self.v_fwd_floor), ("dist_p1", self.v_dist_p1),
+                ("ring_p1", self.v_ring_p1), ("markov_1m", self.v_markov_1m),
                 ("km_xla", self.v_km_xla), ("km_pal", self.v_km_pal)]
         return out
 
@@ -594,11 +703,18 @@ class Probe:
         _log(f"device: {self.dev}"
              + (f" ({torch.cuda.get_device_name(self.dev)})" if self.dev.type == "cuda" else "")
              + f"  N={self.n}  reps={self.reps}")
-        for name, thunk in table:
-            if not selected or name in selected:
-                thunk()
-                if self.dev.type == "cuda":
-                    torch.cuda.empty_cache()
+        try:
+            for name, thunk in table:
+                if not selected or name in selected:
+                    thunk()
+                    if self.dev.type == "cuda":
+                        torch.cuda.empty_cache()
+        finally:
+            if self._own_group:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+                self._own_group = False
         return self.results
 
     def summary(self):

@@ -396,3 +396,30 @@ def test_blocked_factor_backward_error_is_the_librarys(cuda_device):
         with stt.config.chol_backend("torch"):
             library = bwd_err(tchol.cholesky_psd(K))
     assert blocked <= 1.5 * library, (blocked, library)
+
+
+def test_sharded_logpdf_on_a_one_rank_nccl_mesh_at_4096(cuda_device):
+    """The distributed route (`parallel.sharded_logpdf`: the slab from
+    kernel 1, the cyclic panel loop, the collectives) on a one-rank NCCL
+    'rows' mesh equals the single-card flagship value to 1e-4."""
+    import torch.distributed as dist
+
+    from stheno_tpu_torch.parallel import collectives as coll
+    from stheno_tpu_torch.parallel import rows_mesh, sharded_logpdf
+
+    made = not dist.is_initialized()
+    try:
+        mesh = rows_mesh()
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        x, y, _, theta = entry.flagship_data(4096, 1, torch.float32, cuda_device)
+        kern.reset_counters()
+        coll.reset_counters()
+        with torch.no_grad():
+            val = -sharded_logpdf(mesh, entry.build(theta)(stt.GPPPInput("f3", x), theta["noise"]), y)
+        assert kern.COUNTERS["kernelmatrix"].total > 0 and coll.total_calls() > 0
+        step, th = entry.flagship(4096, torch.float32, cuda_device)
+        ref, _ = step(th)
+        assert abs(val.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()

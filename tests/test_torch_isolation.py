@@ -13,10 +13,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import stheno_tpu_torch as stt
 from stheno_tpu_torch import cuda as kern
-from stheno_tpu_torch import accuracy_probe, entry, markov, params, perf_probe
+from stheno_tpu_torch import accuracy_probe, entry, markov, params, parallel, perf_probe
 from stheno_tpu_torch.convert import (
     chain_state_from_numpy,
     fourier_basis_from_numpy,
@@ -28,6 +29,7 @@ from stheno_tpu_torch.convert import (
     warmup_state_from_numpy,
 )
 from stheno_tpu_torch.cuda import _build
+from stheno_tpu_torch.parallel import multihost
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -90,7 +92,10 @@ def test_forbidden_tells_the_jax_package_from_the_port():
                                   "inference/svgp", "inference/likelihoods", "inference/laplace",
                                   "inference/hmc", "inference/smc", "inference/diagnostics",
                                   "inference/checkpoint", "func_transforms", "tree", "sampling",
-                                  "kernels/nkn", "graph", "accuracy_probe"])
+                                  "kernels/nkn", "graph", "accuracy_probe", "parallel/collectives",
+                                  "parallel/mesh", "parallel/cholesky", "parallel/big", "parallel/gppp", "parallel/ring", "parallel/svgp",
+                                  "parallel/chains", "parallel/multihost", "utils/cost",
+                                  "utils/logging"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -131,6 +136,17 @@ def test_the_new_modules_are_walked(name):
     lambda: nkn_layers_from_numpy([stt.LinearLayer(np.zeros((1, 2)))]),
     lambda: fourier_basis_from_numpy(type("B", (), dict(
         omega=np.zeros((2, 1)), phase=np.zeros(2), scale=np.ones(2)))()),
+    lambda: entry.big_n_sharded_example(),
+    lambda: entry.matrix_free_example(),
+    lambda: entry.matrix_free_data(64),
+    lambda: entry.svgp_data_parallel_example(),
+    lambda: entry.svgp_dp_data(64),
+    lambda: parallel.rows_mesh(),
+    lambda: parallel.chains_mesh(),
+    lambda: parallel.data_mesh(),
+    lambda: parallel.grid_mesh(1, 1),
+    lambda: multihost.global_mesh(),
+    lambda: multihost.initialize("file:///nonexistent/store", 1, 0),
 ], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
         "accuracy_probe_main",
         "markov_gp_logpdf", "sde_representation", "mauna_loa_data", "mauna_loa_spec",
@@ -138,11 +154,34 @@ def test_the_new_modules_are_walked(name):
         "svgp_from_numpy", "likelihood_from_numpy", "nuts_data", "nuts_run", "smc_data",
         "smc_particles", "chain_state_from_numpy", "warmup_state_from_numpy", "derivative_data",
         "deconvolution_data", "nkn_data", "nkn_example", "differentiation_example",
-        "quadrature_convolution_example", "nkn_layers_from_numpy", "fourier_basis_from_numpy"])
+        "quadrature_convolution_example", "nkn_layers_from_numpy", "fourier_basis_from_numpy",
+        "big_n_sharded_example", "matrix_free_example", "matrix_free_data",
+        "svgp_data_parallel_example", "svgp_dp_data", "rows_mesh", "chains_mesh", "data_mesh",
+        "grid_mesh", "global_mesh", "initialize"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+    # a mesh that cannot have its card makes no gloo group in its place
+    assert not dist.is_initialized()
+
+
+def test_rows_mesh_without_a_card_raises_and_makes_no_group(monkeypatch):
+    """No fallback: a CUDA mesh on a machine without a card raises before
+    any group exists; only `device_type="cpu"` asks for gloo."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.rows_mesh()
+    assert not dist.is_initialized()
+    mesh = parallel.rows_mesh(device_type="cpu")
+    try:
+        assert dist.get_backend() == "gloo" and mesh.size() == 1
+        # a gloo group in place does not stand in for the card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parallel.rows_mesh()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():

@@ -61,6 +61,23 @@ def test_groups_run_every_row(capsys):
     assert by["trsm_blocked"]["scalar"] == pytest.approx(by["trsm_lax"]["scalar"], rel=1e-5)
 
 
+def test_distributed_rows_run_on_a_one_rank_group_and_leave_none(capsys):
+    """dist_p1 and ring_p1 make a one-rank gloo group on the CPU, check the
+    distributed logpdf against the single-card one and the ring's logpdf
+    and y-gradient against dense, and destroy the group when done."""
+    import torch.distributed as dist
+
+    rc, rows = _run(capsys, "dist_p1", "ring_p1")
+    assert rc == 0 and not dist.is_initialized()
+    by = {r["variant"]: r for r in rows}
+    assert list(by) == ["logpdf_single", "logpdf_dist_p1", "chol_dist_p1", "ring_p1_fwd",
+                        "ring_p1_ygrad"]
+    assert by["logpdf_dist_p1"]["rel_diff_vs_single"] <= perf_probe.CHOL_RTOL
+    assert by["chol_dist_p1"]["rel_err"] <= perf_probe.CHOL_RTOL
+    assert by["ring_p1_ygrad"]["rel_diff_vs_dense"] <= perf_probe.RING_YGRAD_RTOL
+    assert perf_probe.RING_P1 == dict(num_probes=8, lanczos_iters=20, tol=1e-6, maxiter=400)
+
+
 def test_ladder_bases_beyond_the_kernels_take_the_library(capsys):
     rc, rows = _run(capsys, "chol_f1024_b256", "chol_f1024_b512")
     assert rc == 0
