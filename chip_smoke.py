@@ -9,10 +9,12 @@ the CUDA toolkit.  In one run it
 1. builds the CUDA kernels from `stheno_tpu_torch/cuda/csrc/` (one nvcc
    per source, in parallel) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   flagship's shapes and at ragged ones (kernel 1 also in f64; kernels 2
-   and 3 also at n = 1, 33, 255 and their limit 288, and kernel 3 on an
-   input with garbage above the diagonal, which it must ignore, and on its
-   own by |M·tril(L) − I|), with the tolerance stated;
+   flagship's shapes and at ragged ones (kernel 1 also in f64, and at the
+   examples' shapes: D = 4 at 16384², D = 9 at 4096 × 512 in f32 and f64,
+   batched (64, 676, 676) at D = 9 and batched Matern52 (4, 100, 100) in
+   f64; kernels 2 and 3 also at n = 1, 33, 255 and their limit 288, and
+   kernel 3 on an input with garbage above the diagonal, which it must
+   ignore, and on its own by |M·tril(L) − I|), with the tolerance stated;
 3. runs the flagship value-and-gradient step (`-logpdf` of f3 = f1 + f2
    and its gradient in (v1, l1, l2, noise)) at N = 16384 in f32 through the
    blocked path, counts each kernel's launches in that step, and checks the
@@ -102,7 +104,21 @@ the CUDA toolkit.  In one run it
    `svgp_elbo_dp` at phase 9's SVGP configuration against `svgp_elbo`, f32
    and f64; (e) `run_nuts_sharded` and `run_smc_sharded` equal bit for bit
    to phase 10's runs.  Every distributed path launches kernel 1 (the
-   samplers its batched launch) and counts its collectives.
+   samplers its batched launch) and counts its collectives;
+13. runs the ten examples that `stheno_tpu_torch.examples` holds as
+   modules (`chip_smoke.examples_path`), each at its own size with its own
+   checks, counting kernel 1's launches (batched ones too: the
+   convolutional GP's `var2` over its images, getting-started's NUTS over
+   4 chains); then three at full width, f32 against f64 on the card, with
+   launches, peak memory and times: (a) sensor fusion (BASELINE #3) at
+   N = 16384, a −logpdf and gradient step in (v, l, s1, s2) and the joint
+   posterior of f, y1 and y2 at 3 × 1024 points; (b) deep kernel learning
+   at N = 16384, a step in the MLP's weights, v and the noise, kernel 1 at
+   D = 4; (c) the convolutional GP's patch-space VFE on 4096 images of
+   28 × 28 with 512 inducing points, a −ELBO and gradient step in
+   (var, l) at var = P⁻² (f the patch average) taken 512 images at a
+   time, profiled; and kernel 1 timed at the examples' shapes beside its
+   plain version and its bound.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -120,9 +136,8 @@ from pathlib import Path
 N = 16384
 M = 1024
 NM = 1_000_000  # the state-space tier's N
-#: the Mauna Loa path: the example's own size, and the flagship's N split
-#: as about a daily record of CO₂ (1980–2020) and of temperature (1985–2020)
-ML_SMALL = (480, 360)
+#: the Mauna Loa path at full width: the flagship's N split as about a
+#: daily record of CO₂ (1980–2020) and of temperature (1985–2020)
 ML_FULL = (12288, 4096)
 ML_XP = 1024  # prediction points per output
 ML_POST_NOISE = 1e-3  # the f32 posterior samples' query noise (see phase 7)
@@ -138,14 +153,15 @@ PROBE_ROWS = ("null", "chol_cur", "chol_grad", "chol_grad_fused4096", "chol_btri
 # the tensor cores; one SM's fp32 rate is 1/132 of the card's.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+#: an H100 SXM's f64 rate outside the tensor cores (NVIDIA's data sheet)
+FP64_FLOP_PER_S = 34e12
 SMS = 132
 # device kernels grouped by a substring of their (lower-cased) names
-#: the pseudo-point path: N observations, inducing inputs per latent, the
-#: example's own size, prediction points per process, the subset on which
-#: the exact logpdf fits the card, the SVGP minibatch, the Laplace N
+#: the pseudo-point path: N observations, inducing inputs per latent,
+#: prediction points per process, the subset on which the exact logpdf
+#: fits the card, the SVGP minibatch, the Laplace N
 PP_N = 131072
 PP_M = 2048
-PP_SMALL = (600, 24)
 PP_XP = 1024
 PP_SUB = 16384
 PP_BATCH = 4096
@@ -188,6 +204,37 @@ PAR_RING_POST_TOL = 1e-5
 #: kernel 1's forward-mode rule against forward mode through the plain
 #: version (absolute; fp32 tangents of order 1)
 JVP_TOL = 1e-5
+#: phase 13: the full-width runs (a) sensor fusion, y1 and y2 at SF_N_PER
+#: points each and the posterior at 3 × SF_XP, (b) deep kernel learning,
+#: (c) the convolutional GP's VFE on CONV_IMAGES images of CONV_H²
+#: (MNIST's shape) with CONV_M inducing points in patch space, taken
+#: CONV_CHUNK images at a time; kernel 1's D = 9 row at KM_D9_ROWS patch rows
+#: against the inducing points and its batched row over KM_BATCH_IMAGES
+SF_N_PER = 8192
+SF_XP = 1024
+#: (a)'s f32 gradient against f64, of its largest component, at the
+#: example's noise scales (√0.01 and √0.1; condition about 8e5).  The
+#: noise scales' derivatives are differences of two terms of order N/σ²,
+#: and s2's reads Σα over its sensor's block through the 3.5·s2 bias mean:
+#: 5e-3 holds on no f32 route here (on an H100, 700 W, cuSOLVER's f32
+#: reads 2.64e-2 as the port does; this function on the CPU at full size
+#: reads LAPACK's 5.6e-3 and the port's blocked route 1.04e-2; PERF.md §6).
+#: At noise scales SF_UNIT_SCALE (condition about 8e3) the step is held to
+#: phase 3's 5e-3.
+SF_GRAD_TOL = 5e-2
+SF_UNIT_SCALE = 1.0
+DKL_N = 16384
+CONV_IMAGES, CONV_H, CONV_M, CONV_CHUNK = 4096, 28, 512, 512
+#: (c)'s step at g's variance P⁻² (P = 676 patches an image, l = 1): f the
+#: average of g over an image's patches, its prior variance at most 1.  At
+#: the example's variance 1 (f the sum, prior variance about 4.6e5 an
+#: image) the bound's B = I + AAᵀ/σ² has a condition of order
+#: N·4.6e5/0.1 ≈ 2e10, past f32's 1/ε ≈ 1.7e7: its f32 factor breaks (NaN
+#: on an H100 at 4096 images, and on the CPU at 512), f64 does not
+CONV_VAR = 1.0 / (CONV_H - 2) ** 4
+KM_D9_ROWS, KM_BATCH_IMAGES = 4096, 64
+#: kernel 1 in f64 against its plain version (same arithmetic, values ≤ 1.7)
+KM_TOL64 = 1e-12
 #: the query noise of phase 11's posterior marginals, in f32 and f64 alike
 PRED_NOISE = 1e-6
 #: Matern pairs closer than this are left out of the nested jvp comparison:
@@ -393,37 +440,16 @@ def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
 
     # (a) the example's own size, N = 600 and 24 inducing inputs per latent
     # on [−8, 8], f64 (the example sets x64): the small torch.linalg route,
-    # kernel 1 in f64.  Its 400 Adam steps at 2e-2 and its assertions.
-    data_s = E.pseudo_points_data(*PP_SMALL, f64, dev, seed=7, half_width=8.0)
+    # kernel 1 in f64.  Its 400 Adam steps at 2e-2 and its assertions
+    # (`entry.pseudo_points_example`)
     kern.reset_counters()
+    pp_small = E.pseudo_points_example(400, 2e-2, f64, dev)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit_s = E.pseudo_points_fit(400, 2e-2, data=data_s)
-    torch.cuda.synchronize()
-    fit_small_ms = (time.perf_counter() - t0) * 1e3 / 400
     small_counts, _ = counts_now(kern)
+    emit({"pseudo_points_small": {**pp_small, "dtype": "float64", "learning_rate": 2e-2,
+                                  "fit_ms_per_step": pp_small["fit_s"] * 1e3 / 400,
+                                  "launches": small_counts, "card": card}})
     require(small_counts["kernelmatrix"] > 0, "kernel 1 was not launched by the N = 600 fit")
-    with torch.no_grad():
-        fx_s, u_s = E.pseudo_points_observations(fit_s.params, data_s[0])
-        final_elbo = stt.elbo(VFE(u_s), fx_s, data_s[1]).item()
-        exact_lp = stt.logpdf(fx_s, data_s[1]).item()
-    xp_s = torch.linspace(-8.0, 8.0, 100, dtype=f64, device=dev)
-    ms_s = E.pseudo_points_predict(fit_s.params, data_s, xp_s, noise=1e-9)
-    _, m3 = stt.split(E.pseudo_points_query(xp_s), ms_s.mean)
-    xs_h, ys_h = data_s[0].cpu().numpy(), data_s[1].cpu().numpy()
-    rmse = float(np.sqrt(np.mean((np.interp(xs_h, xp_s.cpu().numpy(), m3.cpu().numpy()) - ys_h) ** 2)))
-    loss0, loss_end = fit_s.losses[0].item(), fit_s.losses[-1].item()
-    emit({"pseudo_points_small": {"n": PP_SMALL[0], "m_per_latent": PP_SMALL[1], "dtype": "float64",
-                                  "steps": 400, "learning_rate": 2e-2, "neg_elbo_first": loss0,
-                                  "neg_elbo_last": loss_end, "final_elbo": final_elbo,
-                                  "exact_logpdf": exact_lp, "f3_rmse_vs_data": rmse,
-                                  "fit_ms_per_step": fit_small_ms, "launches": small_counts, "card": card}})
-    require(loss_end < loss0, f"pseudo-points N=600: the loss did not fall ({loss0} -> {loss_end})")
-    require(final_elbo <= exact_lp, f"pseudo-points N=600: ELBO {final_elbo} > logpdf {exact_lp}")
-    require(final_elbo > exact_lp - 0.2 * abs(exact_lp) - 50,
-            f"pseudo-points N=600: ELBO {final_elbo} is far below logpdf {exact_lp}")
-    require(rmse < 0.35, f"pseudo-points N=600: f3 rmse {rmse} >= 0.35")
-    del data_s, fit_s, fx_s, u_s, ms_s
 
     # (b) full width: N = 131072, 2 × 2048 inducing points, f32
     data = E.pseudo_points_data(PP_N, PP_M, f32, dev)
@@ -688,7 +714,7 @@ def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
     batch_idx = batch
     timings = {
         "vfe_step_ms": host_ms(lambda: E.pseudo_points_step(theta0, data), reps=3),
-        "vfe_fit_ms_per_step": fit_ms, "vfe_fit_small_ms_per_step": fit_small_ms,
+        "vfe_fit_ms_per_step": fit_ms, "vfe_fit_small_ms_per_step": pp_small["fit_s"] * 1e3 / 400,
         "vfe_predict_ms": host_ms(lambda: E.pseudo_points_predict(params, data, xp), reps=3),
         "svgp_step_ms": host_ms(lambda: svgp_step(f32, batch_idx), reps=3),
         "laplace_ms": host_ms(lambda: laplace_value_and_grad(f32), reps=3),
@@ -820,30 +846,11 @@ def samplers_path(torch, dev, card):
     grad_ms = host_ms(lambda: vg(thetas), reps=5)
     del grad64, val64, loop_val, loop_grad
 
-    # (c) the example at its own size, with its assertions
+    # (c) the example at its own size, with its assertions (`entry.nuts_example`)
     n_s, chains_s, warm_s, samp_s = NUTS_SMALL
-    data_s = E.nuts_data(n_s, f64, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ex = E.nuts_run(warm_s, samp_s, chains_s, data=data_s, seed=NUTS_SEED)
-    torch.cuda.synchronize()
-    ex_s = time.perf_counter() - t0
-    ex_post = {k: v.cpu().numpy().ravel() for k, v in ex.params.items()}
-    ex_ess = [effective_sample_size(ex.theta[..., i]).item() for i in range(3)]
-    ex_rhat = potential_scale_reduction(ex.theta).max().item()
-    ex_div = ex.info.diverging.double().mean().item()
-    emit({"nuts_example": {
-        "n": n_s, "chains": chains_s, "warmup": warm_s, "samples": samp_s, "dtype": "float64",
-        "seconds": ex_s, "ess": ex_ess, "ess_per_s": sum(ex_ess) / ex_s, "rhat_max": ex_rhat,
-        "divergence_rate": ex_div, "accept_prob": ex.info.accept_prob.mean().item(),
-        "evals_per_transition": ex.info.num_evals.double().mean().item(),
-        "means": {k: float(v.mean()) for k, v in ex_post.items()},
-        "q02_q98": {k: np.quantile(v, [0.02, 0.98]).tolist() for k, v in ex_post.items()}}})
-    for k in ("l", "noise"):
-        lo, hi = np.quantile(ex_post[k], [0.02, 0.98])
-        require(lo < E.NUTS_TRUTH[k] < hi, f"NUTS example: true {k} outside the 2-98% quantiles")
-    require(ex_div < 0.05, f"NUTS example: divergence rate {ex_div} >= 0.05")
-    require(ex_rhat <= 1.05, f"NUTS example: max split-R-hat {ex_rhat} > 1.05")
+    ex_out = E.nuts_example(warm_s, samp_s, chains_s, n_s, NUTS_SEED, dev)
+    ex = ex_out.pop("run")
+    emit({"nuts_example": {**ex_out, "dtype": "float64"}})
 
     # (d) full width: warmup, then a timed sampling-only run from its state
     torch.cuda.synchronize()
@@ -914,30 +921,15 @@ def samplers_path(torch, dev, card):
     emit({"nuts_resume_bit_identical": True, "draws": 6, "chains": chains})
     del data, data64, theta_s, info
 
-    # (e) SMC: the example's two models, its assertions
-    smc_data = E.smc_data(50, f64, dev)
-    smc, smc_counts = {}, None
-    for name, build in E.SMC_BUILDS.items():
-        kern.reset_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = E.smc_run(build, smc_data, num_particles=SMC_PARTICLES)
-        torch.cuda.synchronize()
-        if name == "SE":
-            smc_se = res
-        med = np.median(np.exp(res.particles.cpu().numpy()), axis=0)
-        smc[name] = {"log_evidence": res.log_evidence.item(), "stages": int(res.num_stages),
-                     "seconds": time.perf_counter() - t0, "median_v_l_noise": med.tolist()}
-        if smc_counts is None:
-            smc_counts, _ = counts_now(kern)
-    emit({"smc": smc, "launches_se": smc_counts})
+    # (e) SMC: the example's two models, its assertions (`entry.smc_example`)
+    kern.reset_counters()
+    smc = E.smc_example(SMC_PARTICLES, dev)
+    torch.cuda.synchronize()
+    smc_se = smc.pop("results")["SE"]
+    smc_counts, _ = counts_now(kern)
+    emit({"smc": smc, "launches_both_models": smc_counts})
     require(smc_counts["kernelmatrix_batched"] > 0 and smc_counts["kernelmatrix"] == 0,
             f"SMC did not go through the batched kernel 1: {smc_counts}")
-    require(smc["SE"]["log_evidence"] > smc["Matern32"]["log_evidence"],
-            "SMC: the evidence does not favour the generating model (SE)")
-    med = smc["SE"]["median_v_l_noise"]
-    require(0.4 < med[1] < 3.5, f"SMC: median l {med[1]} outside (0.4, 3.5)")
-    require(med[2] < 0.5, f"SMC: median noise {med[2]} >= 0.5")
 
     row = {"name": "kernelmatrix_batched", "route": "cuda",
            "source": "stheno_tpu_torch/cuda/csrc/kernelmatrix.cu",
@@ -949,7 +941,7 @@ def samplers_path(torch, dev, card):
            "library_ms": None, "shape": rows["nuts"]["shape"],
            "path": "NUTS at full width (kernel 1 with a grid dimension over the vmapped chains)",
            "launches_per_eval": run_counts["kernelmatrix_batched"] / evals,
-           "launches_smc_se": smc_counts["kernelmatrix_batched"], "smc_shape": rows["smc"]}
+           "launches_smc": smc_counts["kernelmatrix_batched"], "smc_shape": rows["smc"]}
     torch.cuda.empty_cache()
     return run_counts, smc_counts, row, {"nuts": ex.theta, "smc_se": smc_se}
 
@@ -1631,6 +1623,325 @@ def parallel_path(torch, dev, card, nuts_ref=None, smc_ref=None):
     return counts
 
 
+def example_kernel_inputs(torch, dev):
+    """Kernel 1's inputs at the shapes phase 13 gives it that no earlier
+    phase does: D = 4 (deep kernel learning's MLP features at its full
+    width), D = 9 (the convolutional GP's 3 × 3 patches against its
+    inducing points), batched D = 9 (`var2`'s per-image patch matrices) and
+    batched Matérn 5/2 in f64 (getting-started's NUTS over 4 chains)."""
+    from stheno_tpu_torch.examples import convolutional_gp as CG
+    from stheno_tpu_torch.examples import deep_kernel_learning as DK
+
+    f32, f64 = torch.float32, torch.float64
+    x, _ = DK.data(DKL_N, f32, dev)
+    w = DK.init_weights(torch.Generator().manual_seed(0), f32, dev)
+    with torch.no_grad():
+        d4 = DK.apply(w, x).contiguous()
+    imgs, z, _ = CG.full_data(KM_BATCH_IMAGES, CONV_H, CONV_M, f32, dev)
+    patches = CG.extract_patches(imgs).contiguous()  # (64, 676, 9)
+    grid = torch.linspace(-5.0, 5.0, 100, dtype=f64, device=dev)
+    # four chains' inputs, each stretched by its own 1/l1
+    m52 = (grid[None, :, None] / torch.tensor([0.4, 0.3, 0.5, 0.45], dtype=f64, device=dev)
+           [:, None, None]).contiguous()
+    return {"d4": d4, "d9": (patches.reshape(-1, 9)[:KM_D9_ROWS].contiguous(), z.contiguous()),
+            "batched_d9": patches, "m52": m52}
+
+
+def example_kernel_checks(torch, dev, inputs):
+    """Phase 2's checks of kernel 1 at `example_kernel_inputs`' shapes,
+    against its plain version on the same inputs.  Returns the largest
+    error in f32."""
+    from stheno_tpu_torch.cuda.kernelmatrix import (
+        kernelmatrix_batched_forward, kernelmatrix_forward, kernelmatrix_plain)
+
+    f32, f64 = torch.float32, torch.float64
+    checks = []
+
+    def hold(label, K, Kp, tol):
+        err = (K - Kp).abs().max().item()
+        checks.append({"case": label, "shape": list(K.shape), "max_abs_err": err, "tolerance_abs": tol})
+        require(err <= tol, f"kernelmatrix {label}: max abs err {err} > {tol}")
+
+    var = torch.tensor(1.7, dtype=f32, device=dev)
+    d4 = inputs["d4"]
+    hold(f"deep kernel features same {d4.shape[0]}^2 D=4 SE f32",
+         kernelmatrix_forward(d4, None, "se", var), kernelmatrix_plain(d4, None, "se", var), KM_TOL)
+    torch.cuda.empty_cache()
+    x9, z9 = inputs["d9"]
+    for dt, tol in ((f32, KM_TOL), (f64, KM_TOL64)):
+        v = var.to(dt)
+        hold(f"patches x inducing {x9.shape[0]}x{z9.shape[0]} D=9 SE {dt}".replace("torch.", ""),
+             kernelmatrix_forward(x9.to(dt), z9.to(dt), "se", v),
+             kernelmatrix_plain(x9.to(dt), z9.to(dt), "se", v), tol)
+    xb = inputs["batched_d9"]
+    yb = xb.clone()  # var2 pairs two tensors of equal values: a cross launch
+    vb = torch.full((xb.shape[0],), 1.7, dtype=f32, device=dev)
+    hold(f"batched var2 {tuple(xb.shape[:2]) + (xb.shape[1],)} D=9 SE f32",
+         kernelmatrix_batched_forward(xb, yb, "se", vb), kernelmatrix_plain(xb, yb, "se", vb), KM_TOL)
+    m52 = inputs["m52"]
+    v52 = torch.tensor([0.04, 0.05, 0.03, 0.045], dtype=f64, device=dev)
+    hold(f"batched NUTS chains {tuple(m52.shape[:2]) + (m52.shape[1],)} D=1 Matern52 f64 same",
+         kernelmatrix_batched_forward(m52, None, "matern52", v52),
+         kernelmatrix_plain(m52, None, "matern52", v52), KM_TOL64)
+    emit({"check": "kernelmatrix at the examples' shapes", "cases": checks})
+    torch.cuda.empty_cache()
+    return max(c["max_abs_err"] for c in checks if "f32" in c["case"])
+
+
+def _km_row(label, fn, plain, n_out, n_in, d, itemsize, flop_rate, launches):
+    """Kernel 1's time beside its plain version's and its bound at one
+    shape: the bytes (inputs read once, the output written once) or the
+    operations (3D + 7 an element), whichever takes longer."""
+    ms = event_ms(fn, reps=10)
+    plain_ms = event_ms(plain, reps=3)
+    t_write = n_out * itemsize / HBM_BYTES_PER_S * 1e3
+    t_read = n_in * d * itemsize / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound((n_out + n_in * d) * itemsize, n_out * (3 * d + 7), flop_rate)
+    return {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "output_write_ms": t_write, "coordinate_read_ms": t_read,
+            "launches": launches}
+
+
+def examples_path(torch, dev, card, inputs):
+    """Phase 13: the ten examples the port runs as modules
+    (`stheno_tpu_torch.examples`), each at its own size with its checks;
+    then three at full width in f32 against f64 on the card: (a) sensor
+    fusion (BASELINE #3) at N = 16384, (b) deep kernel learning at
+    N = 16384, (c) the convolutional GP's patch-space VFE on 4096 images of
+    28 × 28 with 512 inducing points; a profile of (c)'s step; and kernel 1
+    timed at the shapes of `example_kernel_inputs`.  Returns kernel 1's
+    rows at those shapes and each full-width step's launch counts."""
+    import importlib
+
+    import stheno_tpu_torch as stt
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch.cuda.kernelmatrix import (
+        kernelmatrix_batched_forward, kernelmatrix_forward, kernelmatrix_plain)
+    from stheno_tpu_torch.examples import MODULES
+    from stheno_tpu_torch.examples import convolutional_gp as CG
+    from stheno_tpu_torch.examples import deep_kernel_learning as DK
+    from stheno_tpu_torch.examples import sensor_fusion as SF
+    from stheno_tpu_torch.inputs import BlockData, GPPPInput
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+
+    # (1) every example at its own size, with its own checks
+    runs = {}
+    for name in MODULES:
+        module = importlib.import_module(f"stheno_tpu_torch.examples.{name}")
+        kern.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        numbers = module.main(device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, shapes = counts_now(kern)
+        runs[name] = {"seconds": seconds, "launches": counts}
+        emit({"example": name, "seconds": seconds, "launches": counts,
+              "batched_launches_by_shape": shapes["kernelmatrix_batched"], "numbers": numbers,
+              "card": card})
+        require(counts["kernelmatrix"] + counts["kernelmatrix_batched"] >= 1,
+                f"example {name}: kernel 1 was not launched")
+        if name == "convolutional_gp":
+            # var2 of the 12 images: one batched launch of (12, 36, 36), D = 9
+            batched = kern.COUNTERS["kernelmatrix_batched"].by_shape
+            require(counts["kernelmatrix_batched"] >= 1 and all(s[0] == 12 and s[3] == 9 for s in batched),
+                    f"convolutional_gp: var2 did not make one batched launch over its images: {batched}")
+        if name == "getting_started":
+            batched = kern.COUNTERS["kernelmatrix_batched"].by_shape
+            require(any(s[:4] == (4, 100, 100, 1) for s in batched),
+                    f"getting_started: NUTS did not launch kernel 1 batched over its 4 chains: {batched}")
+    emit({"examples": {name: r["seconds"] for name, r in runs.items()},
+          "examples_s": sum(r["seconds"] for r in runs.values()), "card": card})
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return abs(a.item() - b.item()) / abs(b.item())
+
+    def grad_rel(g, g64):
+        return ((g.to(f64) - g64).abs().max() / g64.abs().max()).item()
+
+    def step_launches():
+        counts, shapes = counts_now(kern)
+        for name in FLAGSHIP_KERNELS:
+            require(counts[name] > 0, f"kernel {name} was not launched")
+        return counts, shapes
+
+    steps = {}
+
+    # (2a) sensor fusion at N = 16384: y1 and y2 at 8192 points each
+    x32, y32 = SF.full_data(SF_N_PER, f32, dev)
+    x64 = BlockData(*(GPPPInput(b.p, b.x.to(f64)) for b in x32.blocks))
+    y64 = y32.to(f64)  # the same f32-rounded inputs
+
+    def sf_theta(dtype, **at):
+        return {k: torch.tensor(at.get(k, v), dtype=dtype, device=dev, requires_grad=True)
+                for k, v in SF.THETA.items()}
+
+    def sf_step(dtype, x, y, **at):
+        th = sf_theta(dtype, **at)
+        val = SF.nlml(th, x, y)
+        return val.detach(), torch.stack(torch.autograd.grad(val, list(th.values())))
+
+    torch.cuda.synchronize()
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    v32, g32 = sf_step(f32, x32, y32)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts, shapes = step_launches()
+    v64, g64 = sf_step(f64, x64, y64)
+    # for scale, cuSOLVER's f32 route on the same inputs; and the step at
+    # both noise scales SF_UNIT_SCALE, held to phase 3's 5e-3
+    with stt.config.chol_backend("torch"):
+        lib_v32, lib_g32 = sf_step(f32, x32, y32)
+    unit = dict(s1=SF_UNIT_SCALE, s2=SF_UNIT_SCALE)
+    _, gu32 = sf_step(f32, x32, y32, **unit)
+    _, gu64 = sf_step(f64, x64, y64, **unit)
+    xp = torch.linspace(-2.5, 12.5, SF_XP, dtype=f32, device=dev)
+    th32 = {k: v.detach() for k, v in sf_theta(f32).items()}
+    th64 = {k: v.detach() for k, v in sf_theta(f64).items()}
+    ms32 = SF.predict(th32, x32, y32, xp)
+    ms64 = SF.predict(th64, x64, y64, xp.to(f64))
+    with torch.no_grad():
+        prior_var = SF.model().var(SF.query(xp.to(f64))).max().item()
+    sf = {"n": 2 * SF_N_PER, "nlml_f32": v32.item(), "nlml_f64": v64.item(), "nlml_rel_err": rel(v32, v64),
+          "grad_f32": g32.tolist(), "grad_f64": g64.tolist(), "grad_err_of_largest": grad_rel(g32, g64),
+          "grad_tolerance": SF_GRAD_TOL, "cusolver_f32_nlml_rel_err": rel(lib_v32, v64),
+          "cusolver_f32_grad_err_of_largest": grad_rel(lib_g32, g64),
+          f"grad_err_of_largest_at_noise_scales_{SF_UNIT_SCALE}": grad_rel(gu32, gu64),
+          "predict_points": 3 * SF_XP,
+          "mean_max_abs_err": (ms32.mean.to(f64) - ms64.mean).abs().max().item(),
+          "mean_tolerance": 1e-3 * ms64.mean.abs().max().item(),
+          "var_max_abs_err": (ms32.var.to(f64) - ms64.var).abs().max().item(),
+          "var_tolerance": 1e-3 * prior_var, "peak_step_gib": peak, "launches": counts,
+          "launches_by_shape": shapes}
+    sf["step_ms"] = host_ms(lambda: sf_step(f32, x32, y32), reps=3)
+    sf["predict_ms"] = host_ms(lambda: SF.predict(th32, x32, y32, xp), reps=3)
+    emit({"sensor_fusion_full": sf, "card": card})
+    require(sf["nlml_rel_err"] <= 1e-4, f"sensor fusion nlml rel err {sf['nlml_rel_err']} > 1e-4")
+    require(sf["grad_err_of_largest"] <= SF_GRAD_TOL,
+            f"sensor fusion gradient err {sf['grad_err_of_largest']} > {SF_GRAD_TOL}")
+    unit_err = sf[f"grad_err_of_largest_at_noise_scales_{SF_UNIT_SCALE}"]
+    require(unit_err <= 5e-3, f"sensor fusion at noise scales {SF_UNIT_SCALE}: gradient err {unit_err}")
+    require(sf["mean_max_abs_err"] <= sf["mean_tolerance"], f"sensor fusion mean err {sf}")
+    require(sf["var_max_abs_err"] <= sf["var_tolerance"], f"sensor fusion var err {sf}")
+    steps["sensor_fusion"] = counts
+    del x32, y32, x64, y64, ms32, ms64
+    torch.cuda.empty_cache()
+
+    # (2b) deep kernel learning at N = 16384: kernel 1 at D = 4 on the features
+    x, y = DK.data(DKL_N, f32, dev)
+    w0 = DK.init_weights(torch.Generator().manual_seed(0), f32, dev)
+
+    def dkl_step(dtype):
+        w = {k: v.to(dtype).requires_grad_(True) for k, v in w0.items()}
+        p = {"w": w, "v": torch.tensor(1.0, dtype=dtype, device=dev, requires_grad=True),
+             "noise": torch.tensor(0.2, dtype=dtype, device=dev, requires_grad=True)}
+        val = DK.nlml(p, x.to(dtype), y.to(dtype))
+        grads = torch.autograd.grad(val, [p["v"], p["noise"], *w.values()])
+        return val.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+    torch.cuda.synchronize()
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    v32, g32 = dkl_step(f32)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts, shapes = step_launches()
+    require(any(s[2] == 4 for s in kern.COUNTERS["kernelmatrix"].by_shape),
+            "deep kernel learning: kernel 1 was not launched at D = 4")
+    v64, g64 = dkl_step(f64)
+    dkl = {"n": DKL_N, "weights": int(g32.numel()) - 2, "nlml_f32": v32.item(), "nlml_f64": v64.item(),
+           "nlml_rel_err": rel(v32, v64), "grad_err_of_largest": grad_rel(g32, g64),
+           "grad_largest_f64": g64.abs().max().item(), "peak_step_gib": peak, "launches": counts,
+           "launches_by_shape": shapes}
+    dkl["step_ms"] = host_ms(lambda: dkl_step(f32), reps=3)
+    emit({"deep_kernel_learning_full": dkl, "card": card})
+    require(dkl["nlml_rel_err"] <= 1e-4, f"deep kernel nlml rel err {dkl['nlml_rel_err']} > 1e-4")
+    require(dkl["grad_err_of_largest"] <= 5e-3, f"deep kernel gradient err {dkl['grad_err_of_largest']}")
+    steps["deep_kernel_learning"] = counts
+    del x, y
+    torch.cuda.empty_cache()
+
+    # (2c) the convolutional GP's VFE on 4096 images of 28 × 28, M = 512 in
+    # patch space, in chunks of CONV_CHUNK images under one autograd graph
+    imgs, z, yc = CG.full_data(CONV_IMAGES, CONV_H, CONV_M, f32, dev)
+
+    def conv_step(dtype):
+        th = {k: torch.tensor(v, dtype=dtype, device=dev, requires_grad=True)
+              for k, v in (("var", CONV_VAR), ("l", 1.0))}
+        val = CG.neg_elbo(th, imgs.to(dtype), z.to(dtype), yc.to(dtype), chunk=CONV_CHUNK)
+        return val.detach(), torch.stack(torch.autograd.grad(val, [th["var"], th["l"]]))
+
+    torch.cuda.synchronize()
+    kern.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    v32, g32 = conv_step(f32)
+    torch.cuda.synchronize()
+    peak32 = torch.cuda.max_memory_allocated() / 2**30
+    counts, shapes = counts_now(kern)
+    n_chunks = CONV_IMAGES // CONV_CHUNK
+    batched = kern.COUNTERS["kernelmatrix_batched"].by_shape
+    require(counts["kernelmatrix_batched"] > 0 and counts["kernelmatrix_batched"] % n_chunks == 0
+            and all(s[0] == CONV_CHUNK and s[3] == 9 for s in batched),
+            f"convolutional GP: var2 did not make one batched launch a chunk: {batched}")
+    require(any(s[2] == 9 for s in kern.COUNTERS["kernelmatrix"].by_shape),
+            "convolutional GP: kernel 1 was not launched at D = 9")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    v64, g64 = conv_step(f64)
+    torch.cuda.synchronize()
+    peak64 = torch.cuda.max_memory_allocated() / 2**30
+    conv = {"images": CONV_IMAGES, "image": [CONV_H, CONV_H], "patch_rows": CONV_IMAGES * (CONV_H - 2) ** 2,
+            "inducing": CONV_M, "chunk_images": CONV_CHUNK, "var": CONV_VAR, "l": 1.0,
+            "neg_elbo_f32": v32.item(),
+            "neg_elbo_f64": v64.item(), "neg_elbo_rel_err": rel(v32, v64), "grad_f32": g32.tolist(),
+            "grad_f64": g64.tolist(), "grad_err_of_largest": grad_rel(g32, g64),
+            "peak_step_gib_f32": peak32, "peak_step_gib_f64": peak64, "launches": counts,
+            "launches_by_shape": shapes}
+    conv["step_ms"] = host_ms(lambda: conv_step(f32), reps=3)
+    emit({"convolutional_gp_full": conv, "card": card})
+    require(conv["neg_elbo_rel_err"] <= 1e-4, f"convolutional GP -ELBO rel err {conv['neg_elbo_rel_err']}")
+    require(conv["grad_err_of_largest"] <= 5e-3, f"convolutional GP gradient err {conv['grad_err_of_largest']}")
+    emit({"profile_convolutional_gp_step": profile_ms(lambda: conv_step(f32))})
+    steps["convolutional_gp"] = counts
+    del imgs, z, yc
+    torch.cuda.empty_cache()
+
+    # (3) kernel 1 at the examples' shapes, timed beside its plain version
+    v1 = torch.tensor(1.0, dtype=f32, device=dev)
+    d4 = inputs["d4"]
+    rows = {"d4": _km_row(
+        f"same-input {d4.shape[0]}x{d4.shape[0]} D=4 SE f32",
+        lambda: kernelmatrix_forward(d4, None, "se", v1), lambda: kernelmatrix_plain(d4, None, "se", v1),
+        d4.shape[0] ** 2, d4.shape[0], 4, 4, FP32_FLOP_PER_S,
+        steps["deep_kernel_learning"]["kernelmatrix"])}
+    torch.cuda.empty_cache()
+    x9, z9 = inputs["d9"]
+    for dt, rate, key in ((f32, FP32_FLOP_PER_S, "d9"), (f64, FP64_FLOP_PER_S, "d9_f64")):
+        a, b, v = x9.to(dt), z9.to(dt), v1.to(dt)
+        rows[key] = _km_row(
+            f"cross {a.shape[0]}x{b.shape[0]} D=9 SE {str(dt)[6:]}",
+            lambda: kernelmatrix_forward(a, b, "se", v), lambda: kernelmatrix_plain(a, b, "se", v),
+            a.shape[0] * b.shape[0], a.shape[0] + b.shape[0], 9, a.element_size(), rate,
+            steps["convolutional_gp"]["kernelmatrix"])
+    xb = inputs["batched_d9"]
+    yb = xb.clone()
+    vb = torch.ones(xb.shape[0], dtype=f32, device=dev)
+    c, p = xb.shape[:2]
+    rows["batched_d9"] = _km_row(
+        f"batched ({c}, {p}, {p}) D=9 SE f32",
+        lambda: kernelmatrix_batched_forward(xb, yb, "se", vb),
+        lambda: kernelmatrix_plain(xb, yb, "se", vb), c * p * p, 2 * c * p, 9, 4, FP32_FLOP_PER_S,
+        steps["convolutional_gp"]["kernelmatrix_batched"])
+    emit({"kernelmatrix_examples": rows, "card": card})
+    out = {"rows": rows, "steps": steps, "phase_s": time.perf_counter() - t_phase}
+    emit({"examples_path": {"phase_s": out["phase_s"], "card": card}})
+    return out
+
+
 def main():
     import torch
 
@@ -1718,6 +2029,10 @@ def main():
         del K, Kp
     del cases, pp_x, pp_z
     emit({"check": "kernelmatrix", "tolerance_abs": KM_TOL, "cases": km_checks})
+    # the examples' shapes (phase 13): D = 4, D = 9, batched D = 9, and
+    # batched Matern52 in f64
+    ex_inputs = example_kernel_inputs(torch, dev)
+    km_err_examples = example_kernel_checks(torch, dev, ex_inputs)
 
     # the flagship covariance's leading block: the main path's base blocks
     x, y, xp, theta = flagship_data(N, M, f32, dev)
@@ -2020,33 +2335,19 @@ def main():
 
     # ---- 7. the extended Mauna Loa path --------------------------------------
     # (a) the example's own size, N = 840, f32: the small torch.linalg route,
-    # kernel 1 only.  The example's 250 Adam steps at 3e-2 and its assertions.
-    data_s = E.mauna_loa_data(*ML_SMALL, f32, dev)
+    # kernel 1 only.  The example's 250 Adam steps at 3e-2 and its
+    # assertions (`entry.mauna_loa_example`; in f32 its posterior is
+    # queried under the f32 default jitter, the example's 1e-9 being below
+    # f32's rounding)
     kern.reset_counters()
+    ml_small = E.mauna_loa_example(250, 3e-2, f32, dev)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit_s = E.mauna_loa_fit(250, 3e-2, data=data_s)
-    torch.cuda.synchronize()
-    fit_small_step_ms = (time.perf_counter() - t0) * 1e3 / 250
+    fit_small_step_ms = ml_small["fit_s"] * 1e3 / 250
     fit_small_counts = {k: c.total for k, c in kern.COUNTERS.items()}
+    emit({"mauna_loa_small": {**ml_small, "dtype": "float32", "learning_rate": 3e-2,
+                              "fit_ms_per_step": fit_small_step_ms, "launches": fit_small_counts,
+                              "card": card}})
     require(fit_small_counts["kernelmatrix"] > 0, "kernel 1 was not launched by the N = 840 fit")
-    xp_s = torch.linspace(-22.0, 25.0, 200, dtype=f32, device=dev)
-    # the example queries its f64 posterior with noise 1e-9, which is below
-    # f32's rounding: here the f32 default jitter (noise=None)
-    ms_s = E.mauna_loa_predict(fit_s.params, data_s, xp_s)
-    with torch.no_grad():
-        post_s = E.mauna_loa_posterior(fit_s.params, data_s)
-        m_in = stt.marginals(post_s(stt.GPPPInput("f_co2", data_s[0]))).mean
-    rmse = torch.sqrt(torch.mean((m_in - data_s[1]) ** 2)).item()
-    loss0, loss_end = fit_s.losses[0].item(), fit_s.losses[-1].item()
-    emit({"mauna_loa_small": {"n": sum(ML_SMALL), "dtype": "float32", "steps": 250,
-                              "learning_rate": 3e-2, "nlml_first": loss0, "nlml_last": loss_end,
-                              "co2_in_sample_rmse": rmse, "fit_ms_per_step": fit_small_step_ms,
-                              "launches": fit_small_counts, "card": card}})
-    require(loss_end < loss0 - 50, f"Mauna Loa N=840: the fit made no progress ({loss0} -> {loss_end})")
-    require(bool(torch.isfinite(ms_s.mean).all()), "Mauna Loa N=840: posterior means are not finite")
-    require(rmse < 0.3, f"Mauna Loa N=840: in-sample CO2 rmse {rmse} >= 0.3")
-    del data_s, fit_s, ms_s, post_s, m_in
 
     # (b) full size, N = 16384, f32, on the blocked route
     data = E.mauna_loa_data(*ML_FULL, f32, dev)
@@ -2385,6 +2686,15 @@ def main():
     for row in kernels:
         for path, c in par_counts.items():
             row[f"launches_parallel_{path}"] = c[row["name"]]
+
+    # ---- 13. the examples, three of them at full width ------------------------
+    torch.cuda.empty_cache()
+    ex = examples_path(torch, dev, card, ex_inputs)
+    kernels[0]["examples"] = ex["rows"]
+    kernels[0]["max_abs_err_examples"] = km_err_examples
+    for row in kernels:
+        for path, c in ex["steps"].items():
+            row[f"launches_{path}_full"] = c[row["name"]]
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -4,8 +4,9 @@ hyperparameter trees (`theta_from_numpy`), parameter specs
 (`spec_from_numpy`), SVGP variational states (`svgp_from_numpy`),
 likelihoods (`likelihood_from_numpy`), the samplers' states
 (`chain_state_from_numpy`, `warmup_state_from_numpy`), the Neural Kernel
-Network's layers (`nkn_layers_from_numpy`) and random Fourier feature
-bases (`fourier_basis_from_numpy`)."""
+Network's layers (`nkn_layers_from_numpy`), random Fourier feature
+bases (`fourier_basis_from_numpy`) and the weights of a flax MLP
+(`mlp_from_numpy`)."""
 
 from __future__ import annotations
 
@@ -190,3 +191,18 @@ def fourier_basis_from_numpy(basis, transform=None, dtype=None, device="cuda"):
 
     omega, phase, scale = _tensors([basis.omega, basis.phase, basis.scale], dtype, device)
     return FourierBasis(omega, phase, scale, transform)
+
+
+def mlp_from_numpy(params, dtype=None, device="cuda"):
+    """The weights of a flax MLP as the port's `torch.func.functional_call`
+    dict: each `Dense` layer `name` (flax's `{'params': {name: {'kernel':
+    (in, out), 'bias': (out,)}}}`, or the inner dict, read with
+    `np.asarray`) becomes `name.weight` (out, in), as `nn.Linear` holds it,
+    and `name.bias`, on `device` and cast to `dtype` when given."""
+    layers = params.get("params", params)
+    out = {}
+    for name in sorted(layers):
+        kernel, bias = _tensors([np.asarray(layers[name]["kernel"]).T,
+                                 layers[name]["bias"]], dtype, device)
+        out[f"{name}.weight"], out[f"{name}.bias"] = kernel.contiguous(), bias
+    return out

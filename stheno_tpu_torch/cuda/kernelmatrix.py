@@ -31,7 +31,10 @@ unbatched operands as views, and makes one batched launch of the kernel
 (`kernelmatrix_batched_forward`: x (C, N, D), y (C, M, D) or None, σ² (C,)),
 the counterpart of the batching rule that `jax.vmap` applies to the
 `pallas_call`.  The backward under `vmap` goes through `_KernelMatrixVJP`,
-whose `vmap` rule runs the batched VJP in row chunks.  Batched launches are
+whose `vmap` rule runs the batched VJP in row chunks; when ordinary
+autograd differentiates the vmapped call instead (a `backward()` through
+the convolutional GP's `var2`), the batched launch's own Function,
+`_KernelMatrixBatched`, records the same batched VJP.  Batched launches are
 counted in `BATCHED_LAUNCHES` by (C, N, M, D, same).
 
 `km_se_d1(x, variance)` replaces the fourth Pallas kernel of the JAX
@@ -387,7 +390,35 @@ class _KernelMatrix(torch.autograd.Function):
         x = x if x[0].is_contiguous() else x.contiguous()
         if y is not None and not y[0].is_contiguous():
             y = y.contiguous()
-        return kernelmatrix_batched_forward(x, y, kind, variance), 0
+        return _KernelMatrixBatched.apply(x, y, variance, kind), 0
+
+
+class _KernelMatrixBatched(torch.autograd.Function):
+    """The batched launch with the batched VJP as its backward.  A `vmap`
+    rule runs below every transform, so when ordinary autograd is what
+    differentiates the vmapped call (`backward()` through a statistic that
+    vmaps `kernelmatrix` itself, as the convolutional GP's `var2` does),
+    only this Function records the launch, which autograd cannot see into.
+    Under `torch.func.grad` its inputs carry no autograd history and it
+    records nothing: `_KernelMatrix.backward` takes that case."""
+
+    @staticmethod
+    def forward(x, y, variance, kind):
+        return kernelmatrix_batched_forward(x, y, kind, variance)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, variance, kind = inputs
+        ctx.kind = kind
+        ctx.save_for_backward(x, y, variance)
+
+    @staticmethod
+    def backward(ctx, K_bar):
+        x, y, variance = ctx.saved_tensors
+        gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
+        need_x, need_y, need_v, _ = ctx.needs_input_grad
+        return (gx if need_x else None, gy if need_y else None,
+                gv if need_v else None, None)
 
 
 class _KernelMatrixVJP(torch.autograd.Function):

@@ -24,7 +24,8 @@ and a temperature-like output, observed jointly as `BlockData`:
   its gradient in the flat θ of the spec's free leaves;
 - `mauna_loa_fit(num_steps, ...)`: the example's Adam fit;
 - `mauna_loa_posterior` and `mauna_loa_predict`: the joint posterior, and
-  its marginals at `BlockData(f_co2, f_T, f_trend)`.
+  its marginals at `BlockData(f_co2, f_T, f_trend)`;
+- `mauna_loa_example`: the example at its own size with its checks.
 
 The pseudo-point programme (counterpart of
 `examples/gppp_and_pseudo_points.py`, built by
@@ -39,7 +40,8 @@ the collapsed Titsias ELBO (VFE):
   unconstrained;
 - `pseudo_points_neg_elbo(t, data)`, `pseudo_points_step(theta, data)`
   (value and gradient in the flat θ), `pseudo_points_fit` (Adam) and
-  `pseudo_points_predict` (`posterior_vfe`, marginals of f1 and f3).
+  `pseudo_points_predict` (`posterior_vfe`, marginals of f1 and f3);
+- `pseudo_points_example`: the example at its own size with its checks.
 
 NUTS over GP hyperparameters (counterpart of `examples/nuts_hyperparameters.py`
 and `scripts/nuts_bench.py`, BASELINE #5): `f = GP(v·SE(·/l))` observed under
@@ -49,12 +51,13 @@ noise, standard-normal priors on the unconstrained θ = log(l, noise, v):
   draw of 2·SE(·/1.3) under noise variance 0.1, made with numpy;
 - `nuts_logdensity(data)`: `(logdensity, theta0, unflatten)`;
 - `nuts_run(...)`: warmup and sampling over batched chains (`run_nuts`),
-  with the draws mapped to the constrained (v, l, noise).
+  with the draws mapped to the constrained (v, l, noise);
+- `nuts_example`: the example at its own size with its checks.
 
 SMC model evidence (counterpart of `examples/smc_model_evidence.py`): data
 from the SE model, and the SE and Matern32 models' log-likelihoods in
 q = log(v, l, noise) (`smc_data`, `smc_loglike`, `smc_logprior`,
-`SMC_BUILDS`, `smc_run`).
+`SMC_BUILDS`, `smc_run`), and the example with its checks (`smc_example`).
 
 Derivatives, convolutions, the NKN and pathwise sampling:
 
@@ -82,6 +85,7 @@ with the kernels' plain versions.
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -100,7 +104,13 @@ from stheno_tpu_torch.finite_gp import (
 )
 from stheno_tpu_torch.gppp import gppp
 from stheno_tpu_torch.graph import GP, GPC, convolve_quadrature, cross_cov, derivative
-from stheno_tpu_torch.inference import fit, run_nuts, run_smc
+from stheno_tpu_torch.inference import (
+    effective_sample_size,
+    fit,
+    potential_scale_reduction,
+    run_nuts,
+    run_smc,
+)
 from stheno_tpu_torch.inputs import BlockData, GPPPInput, split
 from stheno_tpu_torch.kernels import (
     LinearKernel,
@@ -281,6 +291,30 @@ def mauna_loa_predict(params, data, xp=None, noise=None):
         return marginals(mauna_loa_posterior(params, data)(mauna_loa_query(xp), noise))
 
 
+def mauna_loa_example(num_steps=250, learning_rate=3e-2, dtype=torch.float64, device="cuda"):
+    """`examples/extended_mauna_loa.py` at its own size (N = 840) with its
+    own checks: the Adam fit gains more than 50 nats, the joint posterior's
+    means at 3 × 200 points are finite and the in-sample CO₂ RMSE is below
+    0.3.  In f64, as the example, the posterior is queried under its 1e-9;
+    in f32 under the dtype's default jitter, 1e-9 being below f32's
+    rounding.  Returns its numbers."""
+    data = mauna_loa_data(dtype=dtype, device=device)
+    t0 = time.perf_counter()
+    res = mauna_loa_fit(num_steps, learning_rate, data=data)  # its losses come to the host
+    out = {"n": len(data[1]) + len(data[3]), "steps": num_steps, "fit_s": time.perf_counter() - t0,
+           "nlml_first": res.losses[0].item(), "nlml_last": res.losses[-1].item()}
+    noise = 1e-9 if dtype == torch.float64 else None
+    ms = mauna_loa_predict(res.params, data, noise=noise)
+    with torch.no_grad():
+        post = mauna_loa_posterior(res.params, data)
+        m_in = marginals(post(GPPPInput("f_co2", data[0]), noise)).mean
+    out["co2_in_sample_rmse"] = torch.sqrt(torch.mean((m_in - data[1]) ** 2)).item()
+    _check(out["nlml_last"] < out["nlml_first"] - 50, f"the fit made no progress: {out}")
+    _check(bool(torch.isfinite(ms.mean).all()), "the posterior means are not finite")
+    _check(out["co2_in_sample_rmse"] < 0.3, f"in-sample CO2 rmse {out['co2_in_sample_rmse']}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The pseudo-point programme (VFE with interdomain inducing points)
 # ---------------------------------------------------------------------------
@@ -366,6 +400,35 @@ def pseudo_points_predict(params, data, xp, noise=None):
         return marginals(post(pseudo_points_query(xp), noise))
 
 
+def pseudo_points_example(num_steps=400, learning_rate=2e-2, dtype=torch.float64, device="cuda"):
+    """`examples/gppp_and_pseudo_points.py` at its own size (N = 600, 24
+    inducing inputs per latent on [−8, 8], data seed 7) with its own
+    checks: the −ELBO falls, the final ELBO lies below the exact logpdf and
+    within 20 % (+50) of it, and the VFE posterior mean of f3 at 100 points
+    follows the data to an RMSE below 0.35.  Returns its numbers."""
+    data = pseudo_points_data(600, 24, dtype, device, seed=7, half_width=8.0)
+    t0 = time.perf_counter()
+    res = pseudo_points_fit(num_steps, learning_rate, data=data)
+    out = {"n": len(data[0]), "m_per_latent": len(data[2]), "steps": num_steps,
+           "fit_s": time.perf_counter() - t0, "neg_elbo_first": res.losses[0].item(),
+           "neg_elbo_last": res.losses[-1].item()}
+    with torch.no_grad():
+        fx, u = pseudo_points_observations(res.params, data[0])
+        out["final_elbo"] = elbo(VFE(u), fx, data[1]).item()
+        out["exact_logpdf"] = logpdf(fx, data[1]).item()
+    xp = torch.linspace(-8.0, 8.0, 100, dtype=dtype, device=data[0].device)
+    _, m3 = split(pseudo_points_query(xp), pseudo_points_predict(res.params, data, xp, 1e-9).mean)
+    xs, ys = data[0].cpu().numpy(), data[1].cpu().numpy()
+    out["f3_rmse_vs_data"] = float(np.sqrt(np.mean(
+        (np.interp(xs, xp.cpu().numpy(), m3.cpu().numpy()) - ys) ** 2)))
+    _check(out["neg_elbo_last"] < out["neg_elbo_first"], f"the loss did not fall: {out}")
+    _check(out["final_elbo"] <= out["exact_logpdf"], f"the ELBO exceeds the logpdf: {out}")
+    _check(out["final_elbo"] > out["exact_logpdf"] - 0.2 * abs(out["exact_logpdf"]) - 50,
+           f"the ELBO is far below the logpdf: {out}")
+    _check(out["f3_rmse_vs_data"] < 0.35, f"f3 rmse {out['f3_rmse_vs_data']}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # NUTS over GP hyperparameters (BASELINE #5) and SMC model evidence
 # ---------------------------------------------------------------------------
@@ -449,6 +512,34 @@ def nuts_run(num_warmup=300, num_samples=400, num_chains=4, max_depth=10, n=60,
     return NUTSRun(theta, nuts_params(theta, unflatten), info, state)
 
 
+def nuts_example(num_warmup=300, num_samples=400, num_chains=4, n=60, seed=11, device="cuda"):
+    """`examples/nuts_hyperparameters.py` at its own size (N = 60, f64,
+    4 chains of 300 + 400) with its own checks: the true l and noise inside
+    the pooled 2–98 % quantiles and fewer than 5 % divergences, and besides
+    a split-R̂ of at most 1.05.  Returns its numbers, the run under "run"."""
+    data = nuts_data(n, torch.float64, device)
+    t0 = time.perf_counter()
+    ex = nuts_run(num_warmup, num_samples, num_chains, data=data, seed=seed)
+    post = {k: v.cpu().numpy().ravel() for k, v in ex.params.items()}  # to the host: synced
+    out = {"n": n, "chains": num_chains, "warmup": num_warmup, "samples": num_samples,
+           "seconds": time.perf_counter() - t0,
+           "ess": [effective_sample_size(ex.theta[..., i]).item() for i in range(3)],
+           "rhat_max": potential_scale_reduction(ex.theta).max().item(),
+           "divergence_rate": ex.info.diverging.double().mean().item(),
+           "accept_prob": ex.info.accept_prob.mean().item(),
+           "evals_per_transition": ex.info.num_evals.double().mean().item(),
+           "means": {k: float(v.mean()) for k, v in post.items()},
+           "q02_q98": {k: np.quantile(v, [0.02, 0.98]).tolist() for k, v in post.items()}}
+    out["ess_per_s"] = sum(out["ess"]) / out["seconds"]
+    for k in ("l", "noise"):
+        lo, hi = out["q02_q98"][k]
+        _check(lo < NUTS_TRUTH[k] < hi, f"the true {k} lies outside the 2-98% quantiles")
+    _check(out["divergence_rate"] < 0.05, f"divergence rate {out['divergence_rate']}")
+    _check(out["rhat_max"] <= 1.05, f"max split-R-hat {out['rhat_max']}")
+    out["run"] = ex
+    return out
+
+
 @gppp
 def smc_build_m32(p):
     """The SMC example's alternative model: f = GP(v·Matern32(·/l))."""
@@ -499,6 +590,29 @@ def smc_run(build, data, num_particles=512, seed=5, num_mcmc=5, hmc_step_size=0.
     init = smc_particles(num_particles, data[0].dtype, data[0].device)
     return run_smc(seed, smc_loglike(build, data), smc_logprior, init, num_mcmc=num_mcmc,
                    hmc_step_size=hmc_step_size, hmc_num_steps=hmc_num_steps)
+
+
+def smc_example(num_particles=512, device="cuda"):
+    """`examples/smc_model_evidence.py` at its own size (N = 50, f64) with
+    its own checks: the SE and Matern32 models' evidence by SMC from
+    `num_particles` particles favours the generating SE model, whose
+    posterior median l lies in (0.4, 3.5) and noise below 0.5.  Returns
+    each model's numbers, the runs under "results"."""
+    data = smc_data(50, torch.float64, device)
+    out = {"results": {}}
+    for name, build in SMC_BUILDS.items():
+        t0 = time.perf_counter()
+        res = smc_run(build, data, num_particles=num_particles)
+        med = np.median(np.exp(res.particles.cpu().numpy()), axis=0)
+        out[name] = {"log_evidence": res.log_evidence.item(), "stages": int(res.num_stages),
+                     "seconds": time.perf_counter() - t0, "median_v_l_noise": med.tolist()}
+        out["results"][name] = res
+    _check(out["SE"]["log_evidence"] > out["Matern32"]["log_evidence"],
+           "the evidence does not favour the generating model (SE)")
+    med = out["SE"]["median_v_l_noise"]
+    _check(0.4 < med[1] < 3.5, f"median l {med[1]} outside (0.4, 3.5)")
+    _check(med[2] < 0.5, f"median noise {med[2]} >= 0.5")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -212,7 +212,8 @@ def logpdf(fx, y):
 def rand(generator, fx, num_samples=None):
     """Sample y ~ N(mean, K + Σ): (N,), or (N, S) with `num_samples` = S,
     the reference's column convention.  `generator` is a `torch.Generator`
-    on the covariance's device (or None for PyTorch's default generator);
+    on the covariance's device or on the CPU (which draws the same numbers
+    whatever the covariance's device), or None for PyTorch's default one;
     it takes the place of the reference's key.  The factor takes the same
     route as `logpdf`'s, so a large f32 covariance on the card is factored
     by the blocked path and its kernels.  A `SparseFiniteGP` samples its

@@ -189,8 +189,10 @@ def mvn_logpdf_psd(y, mean, K_sig):
 
 def mvn_sample_chol(generator, mean, L, sample_shape=()):
     """Samples of N(mean, L Lᵀ), shape (*sample_shape, N): mean + L ε with
-    ε standard normal from `generator` (a `torch.Generator` on L's device,
-    or None for the default one)."""
+    ε standard normal from `generator`: a `torch.Generator` on L's device,
+    or on the CPU (ε is drawn there and moved, so one seed draws the same
+    numbers on every device), or None for L's device's default one."""
     n = L.shape[-1]
-    eps = torch.randn((*sample_shape, n), generator=generator, dtype=L.dtype, device=L.device)
-    return mean + torch.einsum("ij,...j->...i", L, eps)
+    where = L.device if generator is None else generator.device
+    eps = torch.randn((*sample_shape, n), generator=generator, dtype=L.dtype, device=where)
+    return mean + torch.einsum("ij,...j->...i", L, eps.to(L.device))

@@ -423,3 +423,35 @@ def test_sharded_logpdf_on_a_one_rank_nccl_mesh_at_4096(cuda_device):
     finally:
         if made and dist.is_initialized():
             dist.destroy_process_group()
+
+
+def test_vmapped_kernelmatrix_backward_under_plain_autograd(cuda_device):
+    """The convolutional GP's `var2` vmaps kernel 1 and is differentiated by
+    ordinary autograd: the batched launch at D = 9 must carry the gradient
+    to x, y and σ², equal to the loop over single launches (f64)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(8, 36, 9, generator=gen, dtype=torch.float64, device=cuda_device,
+                    requires_grad=True)
+    y = torch.randn(8, 36, 9, generator=gen, dtype=torch.float64, device=cuda_device,
+                    requires_grad=True)
+    v = torch.tensor(1.3, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    kern.reset_counters()
+    K = torch.func.vmap(lambda a, b: tkm.kernelmatrix(a, b, "se", v))(x, y)
+    assert kern.COUNTERS["kernelmatrix_batched"].total == 1
+    got = torch.autograd.grad(K.sum(dim=(1, 2)).square().sum(), (x, y, v))
+    K1 = torch.stack([tkm.kernelmatrix(x[i], y[i], "se", v) for i in range(8)])
+    want = torch.autograd.grad(K1.sum(dim=(1, 2)).square().sum(), (x, y, v))
+    for g, h in zip(got, want):
+        torch.testing.assert_close(g, h, rtol=1e-12, atol=1e-12 * float(h.abs().max()))
+
+
+def test_rand_with_a_cpu_generator_draws_the_cpus_numbers(cuda_device):
+    """A CPU `torch.Generator` draws on the CPU and moves the draw: the card
+    samples what the CPU samples from the same seed (the examples rely on
+    it), to the two factors' rounding."""
+    x = torch.linspace(-3.0, 3.0, 50, dtype=torch.float64)
+    f = stt.GP(stt.SEKernel(), gpc=stt.GPC())
+    on_cpu = stt.rand(torch.Generator().manual_seed(4), f(x, 0.05), 3)
+    on_card = stt.rand(torch.Generator().manual_seed(4), f(x.to(cuda_device), 0.05), 3)
+    assert on_card.device.type == "cuda"
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-10, atol=1e-10)

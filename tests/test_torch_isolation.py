@@ -4,6 +4,7 @@ without it, and a CPU tensor takes the plain versions without touching the
 launch counters."""
 
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -29,6 +30,7 @@ from stheno_tpu_torch.convert import (
     warmup_state_from_numpy,
 )
 from stheno_tpu_torch.cuda import _build
+from stheno_tpu_torch.examples import MODULES as EXAMPLE_MODULES
 from stheno_tpu_torch.parallel import multihost
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -95,7 +97,13 @@ def test_forbidden_tells_the_jax_package_from_the_port():
                                   "kernels/nkn", "graph", "accuracy_probe", "parallel/collectives",
                                   "parallel/mesh", "parallel/cholesky", "parallel/big", "parallel/gppp", "parallel/ring", "parallel/svgp",
                                   "parallel/chains", "parallel/multihost", "utils/cost",
-                                  "utils/logging"])
+                                  "utils/logging", "examples/_common",
+                                  "examples/process_decomposition", "examples/naive_linear_mixing",
+                                  "examples/time_varying_blr", "examples/sensor_fusion",
+                                  "examples/custom_affine_transformations",
+                                  "examples/convolutional_gp", "examples/deep_kernel_learning",
+                                  "examples/getting_started", "examples/non_gaussian_likelihoods",
+                                  "examples/markov_time_series"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -147,6 +155,12 @@ def test_the_new_modules_are_walked(name):
     lambda: parallel.grid_mesh(1, 1),
     lambda: multihost.global_mesh(),
     lambda: multihost.initialize("file:///nonexistent/store", 1, 0),
+    lambda: entry.mauna_loa_example(1),
+    lambda: entry.pseudo_points_example(1),
+    lambda: entry.nuts_example(1, 1),
+    lambda: entry.smc_example(8),
+    *[lambda name=name: importlib.import_module(f"stheno_tpu_torch.examples.{name}").main()
+      for name in EXAMPLE_MODULES],
 ], ids=["flagship", "flagship_data", "theta_from_numpy", "perf_probe", "perf_probe_main",
         "accuracy_probe_main",
         "markov_gp_logpdf", "sde_representation", "mauna_loa_data", "mauna_loa_spec",
@@ -157,7 +171,8 @@ def test_the_new_modules_are_walked(name):
         "quadrature_convolution_example", "nkn_layers_from_numpy", "fourier_basis_from_numpy",
         "big_n_sharded_example", "matrix_free_example", "matrix_free_data",
         "svgp_data_parallel_example", "svgp_dp_data", "rows_mesh", "chains_mesh", "data_mesh",
-        "grid_mesh", "global_mesh", "initialize"])
+        "grid_mesh", "global_mesh", "initialize", "mauna_loa_example", "pseudo_points_example",
+        "nuts_example", "smc_example", *[f"examples.{name}" for name in EXAMPLE_MODULES]])
 def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
