@@ -10,14 +10,25 @@ the CUDA toolkit.  In one run it
    per source, in parallel) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
    flagship's shapes and at ragged ones (kernel 1 also in f64, and at the
-   examples' shapes: D = 4 at 16384², D = 9 at 4096 × 512 in f32 and f64,
-   batched (64, 676, 676) at D = 9 and batched Matern52 (4, 100, 100) in
-   f64; kernels 2 and 3 also at n = 1, 33, 255 and their limit 288, and
+   examples' shapes: D = 4 at 16384², D = 9 at 4096 × 512 in f32 and f64
+   and at a 512-image chunk's 512 × 346112, batched (64, 676, 676) and
+   (512, 676, 676) at D = 9 and batched Matern52 (4, 100, 100) in f64;
+   kernels 2 and 3 also at n = 1, 33, 255 and their limit 288, and
    kernel 3 on an input with garbage above the diagonal, which it must
    ignore, and on its own by |M·tril(L) − I|), with the tolerance stated;
+   kernel 1's VJP kernel against `kernelmatrix_vjp` under a dense cotangent
+   at each of kernel 1's path shapes (those of phase 13 and the samplers'
+   (16, 2048, 2048) in `example_kernel_checks`), and both at D = 2, 4, 5,
+   8, 9, 16 and 17, every kind, same-input and cross with M % 4 != 0, f64,
+   batched with operands shared by the batch; the VJP also on the
+   cotangent layouts autograd hands over and twice, bit for bit
+   (`kernel1_redesign_checks`); and kernel 1's host time a launch
+   (`launch_host_ms`);
 3. runs the flagship value-and-gradient step (`-logpdf` of f3 = f1 + f2
    and its gradient in (v1, l1, l2, noise)) at N = 16384 in f32 through the
-   blocked path, counts each kernel's launches in that step, and checks the
+   blocked path, counts each kernel's launches in that step (the VJP kernel
+   twice, SE and Matern32; from here on a CUDA tensor that reaches the plain
+   `kernelmatrix_vjp` fails the run), and checks the
    step against an f64 computation on the card (the plain kernel matrix,
    `torch.linalg.cholesky` and autograd);
 4. runs `predict` (posterior marginals of f1 at M = 1024 points given f3)
@@ -118,7 +129,8 @@ the CUDA toolkit.  In one run it
    28 × 28 with 512 inducing points, a −ELBO and gradient step in
    (var, l) at var = P⁻² (f the patch average) taken 512 images at a
    time, profiled; and kernel 1 timed at the examples' shapes beside its
-   plain version and its bound.
+   plain version and its bound; then the VJP kernel timed at the paths'
+   shapes (`vjp_rows`).
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -235,6 +247,16 @@ CONV_VAR = 1.0 / (CONV_H - 2) ** 4
 KM_D9_ROWS, KM_BATCH_IMAGES = 4096, 64
 #: kernel 1 in f64 against its plain version (same arithmetic, values ≤ 1.7)
 KM_TOL64 = 1e-12
+#: kernel 1's VJP kernel against `kernelmatrix_vjp`: each output's difference
+#: over the sum of its terms' absolute values (in f64).  The kernel adds the
+#: same terms in another order (a thread's columns, a warp butterfly, the CTAs'
+#: partials, then `torch.sum` over them), and sums of up to 346112 terms
+#: (the convolutional GP's patch rows) rounded in any order stay within
+#: about log2(n)·eps of Σ|term|: 2.2e-6 in f32, 4e-15 in f64; the two
+#: versions' exp and products differ by an ulp or two besides
+VJP_TOL = {"float32": 1e-5, "float64": 1e-12}
+#: back-to-back launches over which a launch's host time is taken
+LAUNCH_REPS = 200
 #: the query noise of phase 11's posterior marginals, in f32 and f64 alike
 PRED_NOISE = 1e-6
 #: Matern pairs closer than this are left out of the nested jvp comparison:
@@ -255,6 +277,7 @@ COMPONENT_NOISE = 1.0
 COMPONENT_TOL = 1e-3
 PROFILE_KINDS = (
     ("kernelmatrix", ("km_kernel",)),
+    ("kernelmatrix_vjp", ("km_vjp",)),
     ("chol_block", ("chol_block_kernel",)),
     ("tri_inv_block", ("tri_inv_kernel",)),
     ("gemm", ("gemm",)),
@@ -821,6 +844,9 @@ def samplers_path(torch, dev, card):
     emit({"samplers_eval_launches": eval_counts, "samplers_eval_launches_by_shape": eval_shapes})
     require(eval_counts["kernelmatrix_batched"] == 1 and eval_counts["kernelmatrix"] == 0,
             f"the vmapped log-density did not launch kernel 1 once, batched: {eval_counts}")
+    require(eval_counts["kernelmatrix_vjp"] == 1
+            and all(sh[0] == chains for sh in kern.COUNTERS["kernelmatrix_vjp"].by_shape),
+            f"the vmapped gradient did not launch the VJP kernel once, batched: {eval_shapes}")
     require(eval_counts["chol_block"] == 0 and eval_counts["tri_inv_block"] == 0,
             f"the vmapped log-density launched kernel 2 or 3: {eval_counts}")
     grad64, val64 = torch.func.vmap(torch.func.grad_and_value(fn64))(thetas.double())
@@ -875,6 +901,8 @@ def samplers_path(torch, dev, card):
     require(run_counts["kernelmatrix_batched"] == evals and run_counts["kernelmatrix"] == 0,
             f"the sampling run's {evals} evaluations did not each launch kernel 1 once, batched: "
             f"{run_counts}")
+    require(run_counts["kernelmatrix_vjp"] == evals,
+            f"the sampling run's {evals} evaluations did not each launch the VJP kernel once: {run_counts}")
     require(run_counts["chol_block"] == 0 and run_counts["tri_inv_block"] == 0,
             f"the sampling run launched kernel 2 or 3: {run_counts}")
     ess = [effective_sample_size(theta_s[..., i]).item() for i in range(3)]
@@ -1624,11 +1652,15 @@ def parallel_path(torch, dev, card, nuts_ref=None, smc_ref=None):
 
 
 def example_kernel_inputs(torch, dev):
-    """Kernel 1's inputs at the shapes phase 13 gives it that no earlier
-    phase does: D = 4 (deep kernel learning's MLP features at its full
-    width), D = 9 (the convolutional GP's 3 × 3 patches against its
-    inducing points), batched D = 9 (`var2`'s per-image patch matrices) and
-    batched Matérn 5/2 in f64 (getting-started's NUTS over 4 chains)."""
+    """Kernel 1's inputs at the shapes phases 10 and 13 give it that no
+    earlier phase does: D = 4 (deep kernel learning's MLP features at its
+    full width), D = 9 (the convolutional GP's 3 × 3 patches against its
+    inducing points: KM_D9_ROWS patch rows, and K_zf of one CONV_CHUNK-image
+    chunk), batched D = 9 (`var2`'s per-image patch matrices, of
+    KM_BATCH_IMAGES and of CONV_CHUNK images), batched Matérn 5/2 in f64
+    (getting-started's NUTS over 4 chains) and batched D = 1 (a NUTS
+    evaluation at NUTS_FULL, each chain at its own lengthscale)."""
+    from stheno_tpu_torch import entry as E
     from stheno_tpu_torch.examples import convolutional_gp as CG
     from stheno_tpu_torch.examples import deep_kernel_learning as DK
 
@@ -1643,19 +1675,38 @@ def example_kernel_inputs(torch, dev):
     # four chains' inputs, each stretched by its own 1/l1
     m52 = (grid[None, :, None] / torch.tensor([0.4, 0.3, 0.5, 0.45], dtype=f64, device=dev)
            [:, None, None]).contiguous()
+    chunk, z_chunk, _ = CG.full_data(CONV_CHUNK, CONV_H, CONV_M, f32, dev)
+    chunk = CG.extract_patches(chunk).contiguous()  # (512, 676, 9)
+    n_full, chains, _ = NUTS_FULL
+    t = E.nuts_data(n_full, f32, dev)[0]
+    ell = torch.exp(0.3 * torch.randn(chains, generator=torch.Generator().manual_seed(21), dtype=f32)).to(dev)
     return {"d4": d4, "d9": (patches.reshape(-1, 9)[:KM_D9_ROWS].contiguous(), z.contiguous()),
-            "batched_d9": patches, "m52": m52}
+            "batched_d9": patches, "m52": m52,
+            "kzf": (z_chunk.contiguous(), chunk.reshape(-1, 9)), "var2": chunk,
+            "nuts": (t[None, :, None] / ell[:, None, None]).contiguous()}
 
 
-def example_kernel_checks(torch, dev, inputs):
-    """Phase 2's checks of kernel 1 at `example_kernel_inputs`' shapes,
-    against its plain version on the same inputs.  Returns the largest
-    error in f32."""
+def example_kernel_checks(torch, dev, inputs, plain_vjp):
+    """Phase 2's checks of kernel 1 and its VJP kernel at
+    `example_kernel_inputs`' shapes, against their plain versions
+    (`kernelmatrix_plain`, `plain_vjp`) on the same inputs, the VJP under a
+    dense cotangent made from a seed (and `var2`'s also under the one its
+    path hands over, one value an image expanded over the image's matrix).
+    Returns the forward's largest error in f32."""
     from stheno_tpu_torch.cuda.kernelmatrix import (
         kernelmatrix_batched_forward, kernelmatrix_forward, kernelmatrix_plain)
 
     f32, f64 = torch.float32, torch.float64
-    checks = []
+    checks, vjps = [], []
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def vjp(label, kind, x, y, v, K_bar=None):
+        if K_bar is None:
+            c = x.shape[:-2]
+            K_bar = torch.randn(*c, x.shape[-2], (x if y is None else y).shape[-2], generator=g,
+                                device=dev, dtype=x.dtype)
+        hold_vjp(torch, vjps, label, kind, x, y, v, K_bar, plain_vjp)
+        torch.cuda.empty_cache()
 
     def hold(label, K, Kp, tol):
         err = (K - Kp).abs().max().item()
@@ -1667,6 +1718,7 @@ def example_kernel_checks(torch, dev, inputs):
     hold(f"deep kernel features same {d4.shape[0]}^2 D=4 SE f32",
          kernelmatrix_forward(d4, None, "se", var), kernelmatrix_plain(d4, None, "se", var), KM_TOL)
     torch.cuda.empty_cache()
+    vjp(f"deep kernel features same {d4.shape[0]}^2 D=4 f32", "se", d4, None, var)
     x9, z9 = inputs["d9"]
     for dt, tol in ((f32, KM_TOL), (f64, KM_TOL64)):
         v = var.to(dt)
@@ -1683,7 +1735,30 @@ def example_kernel_checks(torch, dev, inputs):
     hold(f"batched NUTS chains {tuple(m52.shape[:2]) + (m52.shape[1],)} D=1 Matern52 f64 same",
          kernelmatrix_batched_forward(m52, None, "matern52", v52),
          kernelmatrix_plain(m52, None, "matern52", v52), KM_TOL64)
-    emit({"check": "kernelmatrix at the examples' shapes", "cases": checks})
+    vjp(f"batched NUTS chains {tuple(m52.shape[:2]) + (m52.shape[1],)} D=1 f64 same", "matern52", m52, None, v52)
+    # one CONV_CHUNK-image chunk of the convolutional GP: K_zf (inducing
+    # points against every patch row) and the batched `var2`
+    z, flat = inputs["kzf"]
+    hold(f"K_zf chunk {z.shape[0]}x{flat.shape[0]} D=9 SE f32", kernelmatrix_forward(z, flat, "se", var),
+         kernelmatrix_plain(z, flat, "se", var), KM_TOL)
+    torch.cuda.empty_cache()
+    vjp(f"K_zf chunk {z.shape[0]}x{flat.shape[0]} D=9 f32", "se", z, flat, var)
+    xb = inputs["var2"]
+    yb = xb.clone()
+    c, p = xb.shape[:2]
+    vb = torch.ones(c, dtype=f32, device=dev)
+    hold(f"batched var2 chunk ({c}, {p}, {p}) D=9 SE f32", kernelmatrix_batched_forward(xb, yb, "se", vb),
+         kernelmatrix_plain(xb, yb, "se", vb), KM_TOL)
+    torch.cuda.empty_cache()
+    vjp(f"batched var2 chunk ({c}, {p}, {p}) D=9 f32", "se", xb, yb, vb)
+    vjp(f"batched var2 chunk ({c}, {p}, {p}) D=9 f32, cotangent one value an image", "se", xb, yb, vb,
+        torch.randn(c, generator=g, device=dev)[:, None, None].expand(c, p, p))
+    del yb
+    xn = inputs["nuts"]
+    vn = torch.ones(xn.shape[0], dtype=f32, device=dev)
+    vjp(f"batched NUTS evaluation ({xn.shape[0]}, {xn.shape[1]}, {xn.shape[1]}) D=1 f32 same", "se", xn, None, vn)
+    emit({"check": "kernelmatrix at the examples' shapes", "tolerance_abs": [KM_TOL, KM_TOL64], "cases": checks,
+          "vjp_tolerance_of_abs_terms": VJP_TOL, "vjp": vjps})
     torch.cuda.empty_cache()
     return max(c["max_abs_err"] for c in checks if "f32" in c["case"])
 
@@ -1887,6 +1962,10 @@ def examples_path(torch, dev, card, inputs):
     require(counts["kernelmatrix_batched"] > 0 and counts["kernelmatrix_batched"] % n_chunks == 0
             and all(s[0] == CONV_CHUNK and s[3] == 9 for s in batched),
             f"convolutional GP: var2 did not make one batched launch a chunk: {batched}")
+    vjps = kern.COUNTERS["kernelmatrix_vjp"].by_shape
+    require(any(s[0] == 1 and s[3] == 9 and not s[4] for s in vjps)
+            and any(s[0] == CONV_CHUNK and s[3] == 9 for s in vjps),
+            f"convolutional GP: the VJP kernel was not launched on both K_zf and var2: {vjps}")
     require(any(s[2] == 9 for s in kern.COUNTERS["kernelmatrix"].by_shape),
             "convolutional GP: kernel 1 was not launched at D = 9")
     torch.cuda.empty_cache()
@@ -1942,6 +2021,215 @@ def examples_path(torch, dev, card, inputs):
     return out
 
 
+def vjp_error(torch, x, y, kind, var, K_bar, plain_vjp):
+    """The VJP kernel against `plain_vjp` (`kernelmatrix_vjp`) on the same
+    inputs: the largest |kernel − plain| over Σ|term| (in f64) of any
+    output, and the largest |kernel − plain|."""
+    from stheno_tpu_torch.cuda.kernelmatrix import _launch_vjp, kernelmatrix_vjp_abs_terms
+
+    got = _launch_vjp(x, y, kind, var, K_bar)
+    want = plain_vjp(x, y, kind, var, K_bar)
+    f64 = lambda t: None if t is None else t.double()
+    scale = kernelmatrix_vjp_abs_terms(f64(x), f64(y), kind, var.double(), K_bar.double())
+    rel = err = 0.0
+    for g, w, sc in zip(got, want, scale):
+        require((g is None) == (w is None) and (g is None or (g.shape == w.shape and g.dtype == w.dtype)),
+                "the VJP kernel's outputs differ from the plain version's in shape or type")
+        if g is not None:
+            diff = (g.double() - w.double()).abs()
+            rel = max(rel, (diff / sc.clamp_min(1e-300)).max().item())
+            err = max(err, diff.max().item())
+    return rel, err
+
+
+def hold_vjp(torch, checks, label, kind, x, y, var, K_bar, plain_vjp):
+    """`vjp_error` at one case, recorded in `checks`; fails the run past
+    VJP_TOL."""
+    rel, err = vjp_error(torch, x, y, kind, var, K_bar, plain_vjp)
+    tol = VJP_TOL[str(x.dtype)[6:]]
+    checks.append({"case": label, "kind": kind, "dtype": str(x.dtype)[6:], "shape": list(K_bar.shape),
+                   "err_of_abs_terms": rel, "max_abs_err": err})
+    require(rel <= tol, f"kernelmatrix VJP {label} {kind}: error {rel} of the terms' sum > {tol}")
+
+
+def kernel1_redesign_checks(torch, dev, plain_vjp):
+    """Phase 2's checks of kernel 1 and its VJP kernel past the paths'
+    shapes: the forward and the VJP at D = 2, 4, 5, 8, 9, 16 (compiled
+    instances) and 17 (the generic one), every kind, same-input (N = 1000,
+    16-byte stores) and cross (M = 777: rows off a 16-byte boundary, scalar
+    stores), f64 at D = 9 and 17; batched with x, y or the cotangent shared
+    by the batch (batch stride 0); the VJP on the cotangents autograd hands
+    over (expanded from a scalar, transposed, a slice of a wider one on and
+    off a 16-byte boundary), read in place; and the VJP twice, bit for bit.
+    Returns the largest errors."""
+    from stheno_tpu_torch.cuda.kernelmatrix import (
+        KINDS, _launch_vjp, kernelmatrix_batched_forward, kernelmatrix_forward, kernelmatrix_plain)
+
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device="cpu").manual_seed(12)
+
+    def rand(*shape, dtype=f32, scale=None):
+        t = torch.randn(*shape, generator=gen, dtype=f64).to(dev)
+        return (t if scale is None else t / scale).to(dtype)
+
+    fwd, vjp = [], []
+
+    def hold(label, kind, x, y, var, batched=False):
+        K = (kernelmatrix_batched_forward if batched else kernelmatrix_forward)(x, y, kind, var)
+        Kp = kernelmatrix_plain(x, y, kind, var)
+        tol = KM_TOL if x.dtype == f32 else KM_TOL64
+        err = (K - Kp).abs().max().item()
+        v = var.to(x.dtype)
+        diag_ok = y is not None or bool((K.diagonal(dim1=-2, dim2=-1) == (v[:, None] if batched else v)).all())
+        fwd.append({"case": label, "kind": kind, "dtype": str(x.dtype)[6:], "shape": list(K.shape),
+                    "max_abs_err": err, "diag_exact": diag_ok})
+        require(err <= tol and diag_ok, f"kernelmatrix {label} {kind}: max abs err {err} > {tol} or diagonal not exact")
+        K_bar = rand(*K.shape, dtype=x.dtype)
+        del K, Kp
+        hold_vjp(torch, vjp, label, kind, x, y, var, K_bar, plain_vjp)
+
+    var = torch.tensor(1.7, dtype=f32, device=dev)
+    for d in (2, 4, 5, 8, 9, 16, 17):
+        ell = (torch.linspace(0.7, 2.1, d, dtype=f64) * d ** 0.5).to(dev)
+        for dt in (f32, f64) if d in (9, 17) else (f32,):
+            x, y = rand(1000, d, dtype=dt, scale=ell), rand(777, d, dtype=dt, scale=ell)
+            for kind in KINDS:
+                hold(f"same D={d} {str(dt)[6:]}", kind, x, None, var)
+                hold(f"cross M%4=1 D={d} {str(dt)[6:]}", kind, x, y, var)
+    for d, dt in ((1, f32), (9, f32), (9, f64)):
+        x, y = rand(5, 1000, d, dtype=dt), rand(5, 777, d, dtype=dt)
+        vb = (torch.rand(5, generator=gen, dtype=f64) + 0.5).to(dev, dt)
+        for kind in ("se", "matern32"):
+            hold(f"batched y shared D={d} {str(dt)[6:]}", kind, x, y[0].expand(5, 777, d), vb, batched=True)
+            hold(f"batched x, variance shared D={d} {str(dt)[6:]}", kind, x[0].expand(5, 1000, d), y,
+                 vb[0].expand(5), batched=True)
+            hold_vjp(torch, vjp, f"batched cotangent shared D={d} {str(dt)[6:]}", kind, x, y, vb,
+                     rand(1000, 777, dtype=dt).expand(5, 1000, 777), plain_vjp)
+    x, y = rand(1000, 4), rand(777, 4)
+    for yy, m in ((y, 777), (None, 1000)):
+        wide = rand(1000, m + 8)
+        layouts = {"expanded from a scalar": torch.ones((), dtype=f32, device=dev).expand(1000, m),
+                   "transposed": rand(m, 1000).T, "slice of a wider one": wide[:, 4:m + 4],
+                   "slice off a 16-byte boundary": wide[:, 1:m + 1]}
+        for label, K_bar in layouts.items():
+            for kind in KINDS:
+                hold_vjp(torch, vjp, f"cotangent {label}, {'same' if yy is None else 'cross'} D=4", kind, x, yy,
+                         var, K_bar, plain_vjp)
+                if label != "transposed":  # read in place: the bits of a contiguous copy
+                    got = _launch_vjp(x, yy, kind, var, K_bar)
+                    ref = _launch_vjp(x, yy, kind, var, K_bar.contiguous())
+                    require(all(g is None or torch.equal(g, r) for g, r in zip(got, ref)),
+                            f"the VJP kernel reads the cotangent {label} unlike a contiguous copy")
+    repeat_cases = ((rand(2048, 2), None, "matern52", var, rand(2048, 2048)),
+                    (rand(5, 676, 9), rand(5, 676, 9), "se", var.expand(5), rand(5, 676, 676)))
+    for args in repeat_cases:
+        first = _launch_vjp(*args)
+        for _ in range(10):
+            again = _launch_vjp(*args)
+            require(all(g is None or torch.equal(g, h) for g, h in zip(first, again)),
+                    "the VJP kernel's repeats differ in their bits")
+    out = {"forward_cases": len(fwd), "vjp_cases": len(vjp),
+           "forward_max_abs_err": {dt: max(c["max_abs_err"] for c in fwd if c["dtype"] == dt) for dt in VJP_TOL},
+           "vjp_max_err_of_abs_terms": {dt: max(c["err_of_abs_terms"] for c in vjp if c["dtype"] == dt)
+                                        for dt in VJP_TOL},
+           "vjp_repeats_bit_identical": 10}
+    emit({"check": "kernel 1 redesigned, and its VJP kernel", "km_tolerance_abs": [KM_TOL, KM_TOL64],
+          "vjp_tolerance_of_abs_terms": VJP_TOL, **out, "forward": fwd, "vjp": vjp})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vjp_row(label, fn, plain, read, pairs, points, d, itemsize, flop_rate, launches):
+    """The VJP kernel's time beside its plain version's and its bound at one
+    shape: the bytes (the `read` distinct elements of the cotangent read
+    once, each of the `points` points' coordinates read and its gradient
+    written once) or the operations (6D + 15 for each of the `pairs`
+    elements of the matrix), whichever takes longer."""
+    ms = event_ms(fn, reps=10)
+    plain_ms = event_ms(plain, reps=3)
+    bound_ms, bound_by = bound((read + 2 * points * d) * itemsize, pairs * (6 * d + 15), flop_rate)
+    return {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": launches}
+
+
+def vjp_rows(torch, dev, card, plain_vjp, launches, inputs):
+    """The VJP kernel timed at the paths' shapes, on dense cotangents: the
+    flagship's two 16384² blocks (SE and Matern32, D = 1), and on
+    `example_kernel_inputs`' tensors deep kernel learning's 16384² at
+    D = 4, a convolutional-GP K_zf chunk (512 inducing points × the 346112
+    patch rows of 512 images, D = 9), a `var2` chunk (batched (512, 676²),
+    D = 9; also on the cotangent the path hands over, expanded from one
+    value an image) and a NUTS evaluation (batched (16, 2048²), D = 1).
+    `launches` maps a row to its path's launches."""
+    from stheno_tpu_torch.cuda.kernelmatrix import _launch_vjp
+
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(21)
+    v = torch.tensor(1.5, dtype=f32, device=dev)
+    rows = {}
+
+    def row(key, label, x, y, kind, var, K_bar, read):
+        c = x.shape[0] if x.dim() == 3 else 1
+        points = c * (x.shape[-2] + (0 if y is None else y.shape[-2]))
+        rows[key] = _vjp_row(label, lambda: _launch_vjp(x, y, kind, var, K_bar),
+                             lambda: plain_vjp(x, y, kind, var, K_bar), read, K_bar.numel(), points,
+                             x.shape[-1], 4, FP32_FLOP_PER_S, launches.get(key))
+
+    xs = torch.linspace(-5.0, 5.0, N, dtype=f32, device=dev)[:, None]
+    K_bar = torch.randn(N, N, generator=g, device=dev)
+    for kind, key in (("se", "flagship_se"), ("matern32", "flagship_matern32")):
+        row(key, f"same-input {N}x{N} D=1 {kind} f32", xs, None, kind, v, K_bar, K_bar.numel())
+    d4 = inputs["d4"]
+    row("deep_kernel_d4", f"same-input {DKL_N}x{DKL_N} D=4 se f32", d4, None, "se", v, K_bar, K_bar.numel())
+    del K_bar
+    torch.cuda.empty_cache()
+    z, flat = inputs["kzf"]
+    K_bar = torch.randn(z.shape[0], flat.shape[0], generator=g, device=dev)
+    row("conv_kzf", f"cross {z.shape[0]}x{flat.shape[0]} D=9 se f32", z, flat, "se", v, K_bar, K_bar.numel())
+    del K_bar
+    torch.cuda.empty_cache()
+    patches = inputs["var2"]
+    c, p = patches.shape[:2]
+    vb = torch.ones(c, dtype=f32, device=dev)
+    K_bar = torch.randn(c, p, p, generator=g, device=dev)
+    y2 = patches.clone()
+    row("conv_var2", f"batched ({c}, {p}, {p}) D=9 se f32", patches, y2, "se", vb, K_bar, K_bar.numel())
+    del K_bar
+    expanded = torch.randn(c, generator=g, device=dev)[:, None, None].expand(c, p, p)
+    row("conv_var2_expanded", f"batched ({c}, {p}, {p}) D=9 se f32, cotangent one value an image",
+        patches, y2, "se", vb, expanded, c)
+    del y2
+    torch.cuda.empty_cache()
+    xb = inputs["nuts"]
+    chains, n_full = xb.shape[:2]
+    K_bar = torch.randn(chains, n_full, n_full, generator=g, device=dev)
+    row("nuts_eval", f"batched same-input ({chains}, {n_full}, {n_full}) D=1 se f32", xb, None, "se",
+        torch.ones(chains, dtype=f32, device=dev), K_bar, K_bar.numel())
+    del K_bar
+    torch.cuda.empty_cache()
+    emit({"kernelmatrix_vjp_rows": rows, "card": card})
+    return rows
+
+
+def launch_host_ms(torch, dev):
+    """Host time of one kernel-1 launch at 4096 × 512, D = 9 (f32): `host_ms`
+    of LAUNCH_REPS launches back to back ending in one synchronize, over
+    LAUNCH_REPS.  The launch is host-paced there (its write bound is
+    0.0026 ms), so this reads the wrapper's host path."""
+    from stheno_tpu_torch.cuda.kernelmatrix import kernelmatrix_forward
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(4096, 9, generator=g, device=dev)
+    z = torch.randn(512, 9, generator=g, device=dev)
+    v = torch.tensor(1.0, device=dev)
+
+    def burst():
+        for _ in range(LAUNCH_REPS):
+            kernelmatrix_forward(x, z, "se", v)
+
+    return host_ms(burst, reps=7, warmup=2) / LAUNCH_REPS
+
+
 def main():
     import torch
 
@@ -1955,6 +2243,7 @@ def main():
         _smem_bytes, chol_block, chol_block_plain, library_smem_bytes, tri_inv_block,
         tri_inv_block_plain)
     from stheno_tpu_torch import perf_probe as pp
+    from stheno_tpu_torch.cuda import kernelmatrix as tkm
     from stheno_tpu_torch.cuda.kernelmatrix import (
         kernelmatrix_forward, kernelmatrix_plain, km_se_d1, km_se_d1_plain)
     from stheno_tpu_torch import params as P
@@ -2010,29 +2299,46 @@ def main():
     cases.append(("matern52", "pseudo-point Kuu same D=1", pp_z, None, "pp"))
     cases.append(("se", "pseudo-point Kuf cross D=1", pp_z, pp_x, "pp"))
     km_err_ml = km_err_pp = 0.0
+    vjp_err_main = vjp_abs_err_main = 0.0
     var = torch.tensor(1.7, dtype=f32, device=dev)
+    # the VJP kernel on the same inputs against the plain reverse rule, under
+    # a dense cotangent made from a seed
+    plain_vjp = tkm.kernelmatrix_vjp
+    gen_card = torch.Generator(device=dev).manual_seed(3)
     for kind, label, x, y, main_shape in cases:
         K = kernelmatrix_forward(x, y, kind, var)
         Kp = kernelmatrix_plain(x, y, kind, var)
         err = (K - Kp).abs().max().item()
         diag_ok = y is not None or bool((K.diagonal() == var).all())
-        km_checks.append({"kind": kind, "case": label, "shape": list(K.shape),
-                          "max_abs_err": err, "diag_exact": diag_ok})
+        K_bar = torch.randn(K.shape, generator=gen_card, device=dev, dtype=K.dtype)
+        del K, Kp
+        vjp_rel, vjp_abs = vjp_error(torch, x, y, kind, var, K_bar, plain_vjp)
+        del K_bar
+        vjp_tol = VJP_TOL[str(x.dtype)[6:]]
+        km_checks.append({"kind": kind, "case": label, "shape": [x.shape[0], (x if y is None else y).shape[0]],
+                          "max_abs_err": err, "diag_exact": diag_ok, "vjp_err_of_abs_terms": vjp_rel,
+                          "vjp_max_abs_err": vjp_abs})
         require(err <= KM_TOL and diag_ok,
                 f"kernelmatrix {kind} {label}: max abs err {err} > {KM_TOL} or diagonal not exact")
+        require(vjp_rel <= vjp_tol, f"kernelmatrix VJP {kind} {label}: error {vjp_rel} of the terms' sum > {vjp_tol}")
+        if main_shape is True:
+            vjp_err_main, vjp_abs_err_main = max(vjp_err_main, vjp_rel), max(vjp_abs_err_main, vjp_abs)
         if main_shape == "ml":
             km_err_ml = max(km_err_ml, err)
         elif main_shape == "pp":
             km_err_pp = max(km_err_pp, err)
         elif main_shape:
             km_err_main = max(km_err_main, err)
-        del K, Kp
     del cases, pp_x, pp_z
-    emit({"check": "kernelmatrix", "tolerance_abs": KM_TOL, "cases": km_checks})
+    emit({"check": "kernelmatrix", "tolerance_abs": KM_TOL, "vjp_tolerance_of_abs_terms": VJP_TOL,
+          "cases": km_checks})
+    redesign = kernel1_redesign_checks(torch, dev, plain_vjp)
     # the examples' shapes (phase 13): D = 4, D = 9, batched D = 9, and
     # batched Matern52 in f64
     ex_inputs = example_kernel_inputs(torch, dev)
-    km_err_examples = example_kernel_checks(torch, dev, ex_inputs)
+    km_err_examples = example_kernel_checks(torch, dev, ex_inputs, plain_vjp)
+    emit({"launch_host_ms": launch_host_ms(torch, dev), "launches": LAUNCH_REPS,
+          "shape": "4096x512 D=9 se f32", "card": card})
 
     # the flagship covariance's leading block: the main path's base blocks
     x, y, xp, theta = flagship_data(N, M, f32, dev)
@@ -2113,6 +2419,19 @@ def main():
     del K_main, fx
     torch.cuda.synchronize()
 
+    # from here on the paths' reverse rules on the card are the VJP kernel:
+    # a CUDA tensor that reaches the plain `kernelmatrix_vjp` is counted, and
+    # fails the run at its end (the comparisons above and below call
+    # `plain_vjp` itself)
+    plain_vjp_on_card = []
+
+    def guarded_vjp(x, *args, **kwargs):
+        if x.is_cuda:
+            plain_vjp_on_card.append(tuple(x.shape))
+        return plain_vjp(x, *args, **kwargs)
+
+    tkm.kernelmatrix_vjp = guarded_vjp
+
     # ---- 3. flagship value and gradient at N=16384 f32 ---------------------
     step, theta = flagship(N, f32, dev)
     kern.reset_counters()
@@ -2125,6 +2444,8 @@ def main():
     emit({"step_launches": step_counts, "step_launches_by_shape": step_shapes})
     for name in FLAGSHIP_KERNELS:
         require(step_counts[name] > 0, f"kernel {name} was not launched by the flagship step")
+    require(step_counts["kernelmatrix_vjp"] == 2,
+            f"the flagship step did not launch the VJP kernel twice (SE and Matern32): {step_counts}")
     require(math.isfinite(val.item()) and all(math.isfinite(g.item()) for g in grad.values()),
             "flagship step is not finite")
 
@@ -2642,6 +2963,17 @@ def main():
          "library_ms": None, "shape": f"x ({N},) -> K {N}x{N} SE variance 1.5 f32",
          "path": "perf_probe (kernel 1's SE, D=1 instance)",
          "launches_mauna_loa_step": ml_counts["km_se_d1"]},
+        # its times, plain time and bound: `vjp_rows`, after phase 13
+        {"name": "kernelmatrix_vjp", "route": "cuda",
+         "source": "stheno_tpu_torch/cuda/csrc/kernelmatrix.cu",
+         "replaces": "stheno_tpu/experimental/pallas/kernelmatrix.py:101",
+         "reverse_of": "kernelmatrix (the Pallas kernel has no backward: the JAX package's gradient "
+                       "is XLA's differentiation of the pairwise expression)",
+         "launches": step_counts["kernelmatrix_vjp"], "max_abs_err": vjp_abs_err_main,
+         "max_err_of_abs_terms": vjp_err_main, "library_ms": None,
+         "shape": f"same-input {N}x{N} D=1 se f32, dense cotangent",
+         "launches_mauna_loa_step": ml_counts["kernelmatrix_vjp"],
+         "checks": redesign},
     ]
     # the step's flops: the blocked forward n³/3 and its reverse sweep 2n³/3
     # (the m×m @ m×B trailing GEMM of each panel); predict: the forward and
@@ -2695,6 +3027,24 @@ def main():
     for row in kernels:
         for path, c in ex["steps"].items():
             row[f"launches_{path}_full"] = c[row["name"]]
+
+    # ---- the VJP kernel timed at the paths' shapes ----------------------------
+    torch.cuda.empty_cache()
+    vjp_path_launches = {
+        "flagship_se": step_counts["kernelmatrix_vjp"], "flagship_matern32": step_counts["kernelmatrix_vjp"],
+        "deep_kernel_d4": ex["steps"]["deep_kernel_learning"]["kernelmatrix_vjp"],
+        "conv_kzf": ex["steps"]["convolutional_gp"]["kernelmatrix_vjp"],
+        "conv_var2": ex["steps"]["convolutional_gp"]["kernelmatrix_vjp"],
+        "conv_var2_expanded": ex["steps"]["convolutional_gp"]["kernelmatrix_vjp"],
+        "nuts_eval": sampler_counts["kernelmatrix_vjp"]}
+    vrows = vjp_rows(torch, dev, card, plain_vjp, vjp_path_launches, ex_inputs)
+    vjp_row = next(row for row in kernels if row["name"] == "kernelmatrix_vjp")
+    vjp_row.update({k: vrows["flagship_se"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    vjp_row["rows"] = vrows
+    emit({"plain_vjp_calls_on_the_card": len(plain_vjp_on_card)})
+    require(not plain_vjp_on_card,
+            f"a CUDA tensor reached the plain kernelmatrix_vjp on a path: {plain_vjp_on_card[:5]}")
+    tkm.kernelmatrix_vjp = plain_vjp
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

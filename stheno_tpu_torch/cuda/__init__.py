@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (`sm_90a`), one for each Pallas
 kernel of the JAX package, each with its plain PyTorch version beside it:
 
-- `kernelmatrix`: the pairwise stationary kernel matrix (kernel 1), and
-  its batched launch (a grid dimension over a `torch.func.vmap` batch);
+- `kernelmatrix`: the pairwise stationary kernel matrix (kernel 1), its
+  batched launch (a grid dimension over a `torch.func.vmap` batch), and its
+  reverse rule (the VJP kernel);
 - `chol_block.chol_block`: base-case Cholesky of a batch of blocks (kernel 2);
 - `chol_block.tri_inv_block`: base-case triangular inverse (kernel 3);
 - `kernelmatrix.km_se_d1`: the performance probe's same-input SE matrix of a
@@ -19,6 +20,7 @@ from stheno_tpu_torch.cuda._build import build
 COUNTERS = {
     "kernelmatrix": kernelmatrix.LAUNCHES,
     "kernelmatrix_batched": kernelmatrix.BATCHED_LAUNCHES,
+    "kernelmatrix_vjp": kernelmatrix.VJP_LAUNCHES,
     "chol_block": chol_block.CHOL_LAUNCHES,
     "tri_inv_block": chol_block.TRI_INV_LAUNCHES,
     "km_se_d1": kernelmatrix.KM_SE_D1_LAUNCHES,

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` becomes one shared library with a plain C interface,
 built for `sm_90a` at first use into `build/cuda/` at the root of the
-checkout (listed in `.gitignore`).  The library's file name carries a hash of
+checkout (listed in `.gitignore`), each nvcc spreading its kernels over
+every core.  The library's file name carries a hash of
 the source and the flags, so an edited source is rebuilt and a stale library
 is never loaded.  `build()` starts one nvcc per missing library, all at once,
 and waits for every one of them.  A failed build raises with nvcc's stderr;
@@ -24,6 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # optimise a source's kernels in parallel, on every core (kernel 1's
+    # source holds 272 template instances)
+    "--split-compile=0",
 )
 
 _lock = threading.Lock()

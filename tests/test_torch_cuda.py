@@ -39,10 +39,12 @@ def _spd_stack(batch, n, seed, dtype, device):
 @pytest.mark.parametrize("kind", sorted(tkm.KINDS))
 def test_kernelmatrix_matches_plain(cuda_device, kind, dtype):
     rng = np.random.default_rng(8)
-    ell = np.asarray([0.7, 1.3, 2.1])
-    for dim in (1, 3):
-        xs = torch.as_tensor(rng.normal(size=(1000, dim)) / ell[:dim], dtype=dtype, device=cuda_device)
-        ys = torch.as_tensor(rng.normal(size=(777, dim)) / ell[:dim], dtype=dtype, device=cuda_device)
+    # D = 1..16 are compiled instances, 17 the generic one; M = 777 ends
+    # its rows off a 16-byte boundary (scalar stores), N = 1000 on one
+    for dim in (1, 2, 3, 4, 9, 16, 17):
+        ell = np.linspace(0.7, 2.1, dim) * np.sqrt(dim)
+        xs = torch.as_tensor(rng.normal(size=(1000, dim)) / ell, dtype=dtype, device=cuda_device)
+        ys = torch.as_tensor(rng.normal(size=(777, dim)) / ell, dtype=dtype, device=cuda_device)
         v = torch.tensor(1.7, dtype=dtype, device=cuda_device)
         for yy in (None, ys):
             K = tkm.kernelmatrix_forward(xs, yy, kind, v)
@@ -107,8 +109,8 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
     tkm.km_se_d1(x[:, 0])
     torch.cuda.synchronize()
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
-        "kernelmatrix": 1, "kernelmatrix_batched": 0, "chol_block": 1, "tri_inv_block": 1,
-        "km_se_d1": 1}
+        "kernelmatrix": 1, "kernelmatrix_batched": 0, "kernelmatrix_vjp": 0, "chol_block": 1,
+        "tri_inv_block": 1, "km_se_d1": 1}
     with pytest.raises(TypeError):
         tcb.chol_block(A.half())
     with pytest.raises(TypeError):  # the kernels are f32 only
@@ -277,8 +279,8 @@ def test_vmapped_logdensity_at_4096_takes_torch_linalg(cuda_device):
     grad, val = torch.func.vmap(torch.func.grad_and_value(fn))(thetas)
     torch.cuda.synchronize()
     counts = {k: c.total for k, c in kern.COUNTERS.items()}
-    assert counts == {"kernelmatrix": 0, "kernelmatrix_batched": 1, "chol_block": 0,
-                      "tri_inv_block": 0, "km_se_d1": 0}, counts
+    assert counts == {"kernelmatrix": 0, "kernelmatrix_batched": 1, "kernelmatrix_vjp": 1,
+                      "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0}, counts
     assert list(kern.COUNTERS["kernelmatrix_batched"].by_shape) == [(4, 4096, 4096, 1, True)]
     for c in range(4):
         th = thetas[c].clone().requires_grad_(True)
@@ -455,3 +457,151 @@ def test_rand_with_a_cpu_generator_draws_the_cpus_numbers(cuda_device):
     on_card = stt.rand(torch.Generator().manual_seed(4), f(x.to(cuda_device), 0.05), 3)
     assert on_card.device.type == "cuda"
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-10, atol=1e-10)
+
+
+def _hold_vjp(x, y, kind, v, K_bar):
+    """The VJP kernel against `kernelmatrix_vjp` on the same inputs: each
+    output within 1e-5 (f32) or 1e-12 (f64) of its terms' Σ|·| in f64 (sums
+    of up to a few thousand terms here, added in another order)."""
+    got = tkm._launch_vjp(x, y, kind, v, K_bar)
+    want = tkm.kernelmatrix_vjp(x, y, kind, v, K_bar)
+    f64 = lambda t: None if t is None else t.double()
+    scale = tkm.kernelmatrix_vjp_abs_terms(f64(x), f64(y), kind, v.double(), K_bar.double())
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-12
+    for name, g, w, sc in zip(("x", "y", "variance"), got, want, scale):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            assert bool(((g.double() - w.double()).abs() <= tol * sc).all()), (name, kind, tuple(x.shape))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", sorted(tkm.KINDS))
+def test_kernelmatrix_vjp_matches_plain(cuda_device, kind, dtype):
+    """The VJP kernel at D = 1, 2, 4, 9 (compiled) and 17 (rows-only, run
+    twice), same-input and cross, ragged N and M (300 × 177: rows of the
+    cotangent off a 16-byte boundary), and one launch counted each."""
+    rng = np.random.default_rng(12)
+    for dim in (1, 2, 4, 9, 17):
+        ell = np.linspace(0.7, 2.1, dim) * np.sqrt(dim)
+        x = torch.as_tensor(rng.normal(size=(300, dim)) / ell, dtype=dtype, device=cuda_device)
+        y = torch.as_tensor(rng.normal(size=(177, dim)) / ell, dtype=dtype, device=cuda_device)
+        v = torch.tensor(1.7, dtype=dtype, device=cuda_device)
+        for yy in (None, y):
+            m = 300 if yy is None else 177
+            K_bar = torch.as_tensor(rng.normal(size=(300, m)), dtype=dtype, device=cuda_device)
+            kern.reset_counters()
+            _hold_vjp(x, yy, kind, v, K_bar)
+            assert kern.COUNTERS["kernelmatrix_vjp"].by_shape == {(1, 300, m, dim, yy is None): 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernelmatrix_vjp_batched_with_shared_operands(cuda_device, dtype):
+    """The batched VJP (C = 5) with x, y, σ² and K̄ each shared by the batch
+    (expanded views, batch stride 0) and not, against the plain version."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    for dim in (1, 9):
+        x = (torch.randn(5, 130, dim, generator=gen, dtype=torch.float64) * 2).to(cuda_device, dtype)
+        y = (torch.randn(5, 67, dim, generator=gen, dtype=torch.float64) * 2).to(cuda_device, dtype)
+        v = (torch.rand(5, generator=gen, dtype=torch.float64) + 0.5).to(cuda_device, dtype)
+        Kb = torch.randn(5, 130, 67, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+        for kind in ("se", "matern32"):
+            _hold_vjp(x, y, kind, v, Kb)
+            _hold_vjp(x[0].expand(5, 130, dim), y, kind, v[0].expand(5), Kb)
+            _hold_vjp(x, y[0].expand(5, 67, dim), kind, v, Kb[0].expand(5, 130, 67))
+            Ks = torch.randn(5, 130, 130, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+            _hold_vjp(x, None, kind, v, Ks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernelmatrix_vjp_takes_cotangents_as_autograd_hands_them_over(cuda_device, dtype):
+    """K̄ expanded from a scalar (strides 0, 0), a transposed view, and a
+    slice of a wider cotangent (row stride past M; a start on and off a
+    16-byte boundary), each read in place, same-input and cross; all but
+    the transposed one give the bits of a contiguous copy."""
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+    x, y = rand(257, 4), rand(132, 4)
+    v = torch.tensor(0.8, dtype=dtype, device=cuda_device)
+
+    def layouts(n, m):
+        wide = rand(n, m + 8)
+        return {"scalar": torch.ones((), dtype=dtype, device=cuda_device).expand(n, m),
+                "transposed": rand(m, n).T, "slice": wide[:, 4:m + 4], "slice off 16 bytes": wide[:, 1:m + 1]}
+
+    for kind in sorted(tkm.KINDS):
+        for yy, m in ((y, 132), (None, 257)):
+            for label, K_bar in layouts(257, m).items():
+                got = _hold_vjp(x, yy, kind, v, K_bar)
+                if label != "transposed":  # the transposed problem adds in another order
+                    ref = tkm._launch_vjp(x, yy, kind, v, K_bar.contiguous())
+                    for g, r in zip(got, ref):
+                        assert (g is None and r is None) or torch.equal(g, r), (label, kind)
+
+
+def test_kernelmatrix_vjp_repeats_bit_for_bit(cuda_device):
+    """No floating-point atomics: two calls give the same bits, unbatched
+    and batched, f32 and f64, at a shape with many CTAs a row."""
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(2048, 2, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+        Kb = torch.randn(2048, 2048, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+        v = torch.tensor(1.3, dtype=dtype, device=cuda_device)
+        xb = torch.randn(16, 300, 9, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+        Kbb = torch.randn(16, 300, 300, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+        vb = torch.rand(16, generator=gen, dtype=torch.float64).to(cuda_device, dtype)
+        for args in ((x, None, "matern52", v, Kb), (x, x.flip(0), "se", v, Kb),
+                     (xb, None, "se", vb, Kbb)):
+            first = tkm._launch_vjp(*args)
+            for _ in range(10):
+                again = tkm._launch_vjp(*args)
+                for g, h in zip(first, again):
+                    assert (g is None and h is None) or torch.equal(g, h)
+
+
+def test_second_backward_through_the_card_route_raises(cuda_device):
+    """The card's reverse rule is once differentiable: a second
+    differentiation through it raises, whichever input carries the graph
+    (never a silent zero), for the unbatched and the batched launch; the
+    first derivative under `create_graph=True` is the plain one."""
+    x = torch.linspace(-2.0, 2.0, 64, dtype=torch.float64, device=cuda_device)[:, None]
+    x = x.clone().requires_grad_(True)
+    v = torch.tensor(1.2, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    K = tkm.kernelmatrix(x, None, "se", v)
+    (gx,) = torch.autograd.grad(K.sum(), x, create_graph=True)  # K̄: a scalar, no graph
+    ref = tkm.kernelmatrix_vjp(x.detach(), None, "se", v.detach(), torch.ones_like(K))[0]
+    torch.testing.assert_close(gx.detach(), ref, rtol=1e-12, atol=1e-12)
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad((gx * gx).sum(), (x, v))
+    xb = torch.randn(3, 40, 2, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    Kb = torch.func.vmap(lambda a: tkm.kernelmatrix(a, None, "matern32", v))(xb)
+    (gb,) = torch.autograd.grad(Kb.square().sum(), xb, create_graph=True)
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad(gb.sum(), v)
+
+
+def test_vjp_counter_counts_each_backward_and_no_cpu_call(cuda_device):
+    """One VJP launch for each backward through kernel 1 on the card (two
+    for a sum of two kernels), none on CPU tensors; and on the card the
+    plain `kernelmatrix_vjp` is never reached."""
+    calls = []
+    plain = tkm.kernelmatrix_vjp
+
+    def spy(x, *args, **kwargs):
+        calls.append(x.device.type)
+        return plain(x, *args, **kwargs)
+
+    tkm.kernelmatrix_vjp = spy
+    try:
+        for device in (cuda_device, torch.device("cpu")):
+            x = torch.linspace(-3.0, 3.0, 200, device=device)[:, None].requires_grad_(True)
+            v = torch.tensor(0.9, device=device, requires_grad=True)
+            kern.reset_counters()
+            K = tkm.kernelmatrix(x, None, "se", v) + tkm.kernelmatrix(x / 2, None, "matern32", v)
+            torch.autograd.grad((K * K).sum(), (x, v))
+            expected = 2 if device.type == "cuda" else 0
+            assert kern.COUNTERS["kernelmatrix_vjp"].total == expected
+    finally:
+        tkm.kernelmatrix_vjp = plain
+    assert calls == ["cpu", "cpu"]

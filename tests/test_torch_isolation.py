@@ -225,8 +225,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert np.isfinite(pp_val.item()) and bool(torch.isfinite(pp_grad).all())
     assert pp_ms.mean.shape == (128,) and np.isfinite(fused_val.item())
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
-        "kernelmatrix": 0, "kernelmatrix_batched": 0, "chol_block": 0, "tri_inv_block": 0,
-        "km_se_d1": 0}
+        "kernelmatrix": 0, "kernelmatrix_batched": 0, "kernelmatrix_vjp": 0, "chol_block": 0,
+        "tri_inv_block": 0, "km_se_d1": 0}
 
 
 def test_derivative_pathwise_deconvolution_and_nkn_on_cpu_count_no_launch():

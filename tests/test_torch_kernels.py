@@ -38,7 +38,7 @@ def _inputs(seed, n, m, dim, dtype=np.float64):
     shape = lambda k: (k, dim) if dim > 1 else (k,)
     x = rng.normal(size=shape(n)).astype(dtype)
     y = rng.normal(size=shape(m)).astype(dtype)
-    ell = np.asarray([0.7, 1.3, 2.1][:dim] if dim > 1 else 0.8, dtype=dtype)
+    ell = np.asarray(np.resize([0.7, 1.3, 2.1], dim) if dim > 1 else 0.8, dtype=dtype)
     return x, y, ell
 
 
@@ -92,7 +92,7 @@ def test_plain_kernelmatrix_matches_pallas_interpret(kind, dim):
 
 
 @pytest.mark.parametrize("same", [True, False], ids=["same", "cross"])
-@pytest.mark.parametrize("dim", [1, 3])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 9])
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_kernelmatrix_gradient_matches_jax(kind, dim, same):
     """The hand-written backward (∂σ², ∂ℓ, ∂x) against jax.grad of Σ W⊙K."""
@@ -117,6 +117,102 @@ def test_kernelmatrix_gradient_matches_jax(kind, dim, same):
     for a, b in zip(tg, jg):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-9, atol=1e-12 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["same", "cross"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_batched_kernelmatrix_vjp_matches_jax_vmap(kind, same):
+    """The batched reverse rule at D = 9 (the convolutional GP's patches;
+    what the VJP kernel is held against on the card), directly and under
+    `torch.func.vmap(grad)`, against `jax.vmap` of the JAX package's VJP of
+    its kernel matrix, per entry (rtol 1e-9)."""
+    rng = np.random.default_rng(16)
+    C, n, m, d = 3, 40, 28, 9
+    x = rng.normal(size=(C, n, d)) / 2
+    y = x if same else rng.normal(size=(C, m, d)) / 2
+    v = rng.uniform(0.5, 2.0, size=C)
+    K_bar = rng.normal(size=(C, n, n if same else m))
+    jk, _ = KINDS[kind]
+
+    def jax_vjp(vb, xb, yb, kb):
+        f = (lambda vv, xx: st.kernelmatrix(vv * jk(), xx)) if same else (
+            lambda vv, xx: st.kernelmatrix(vv * jk(), xx, yb))
+        _, pull = jax.vjp(f, vb, xb)
+        return pull(kb)
+
+    jv, jx = jax.vmap(jax_vjp)(jnp.asarray(v), jnp.asarray(x), jnp.asarray(y), jnp.asarray(K_bar))
+    T = torch.as_tensor
+    gx, _, gv = tkm.kernelmatrix_vjp(T(x), None if same else T(y), kind, T(v), T(K_bar))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jx), rtol=1e-9, atol=1e-12 * np.abs(jx).max())
+    np.testing.assert_allclose(gv.numpy(), np.asarray(jv), rtol=1e-9)
+
+    def weighted(vv, xx, kb, yy):
+        return torch.sum(kb * tkm.kernelmatrix(xx, None if same else yy, kind, vv))
+
+    tv, tx = torch.func.vmap(torch.func.grad(weighted, argnums=(0, 1)))(T(v), T(x), T(K_bar), T(y))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-9, atol=1e-12 * np.abs(jx).max())
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-9)
+
+
+@pytest.mark.parametrize("dim", [1, 9])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_kernelmatrix_vjp_abs_terms(kind, dim):
+    """The scale the VJP kernel is held against on the card: where no term
+    cancels (every x below every y in each coordinate, K̄ ≥ 0, so each term
+    of x̄ is ≥ 0 and of ȳ ≤ 0) it is the VJP itself, with ȳ negated; under
+    a cotangent of either sign it bounds the VJP and ignores K̄'s signs."""
+    rng = np.random.default_rng(19)
+    T = torch.as_tensor
+    x = T(rng.uniform(-3.0, -1.0, size=(30, dim)))
+    y = T(rng.uniform(1.0, 3.0, size=(20, dim)))
+    v = T(1.3)
+    K_bar = T(rng.uniform(0.0, 1.0, size=(30, 20)))
+    gx, gy, gv = tkm.kernelmatrix_vjp(x, y, kind, v, K_bar)
+    sx, sy, sv = tkm.kernelmatrix_vjp_abs_terms(x, y, kind, v, K_bar)
+    torch.testing.assert_close(sx, gx, rtol=1e-12, atol=0)
+    torch.testing.assert_close(sy, -gy, rtol=1e-12, atol=0)
+    torch.testing.assert_close(sv, gv, rtol=1e-12, atol=0)
+    K_bar = T(rng.normal(size=(30, 30)))
+    x = T(rng.normal(size=(30, dim)))
+    gx, _, gv = tkm.kernelmatrix_vjp(x, None, kind, v, K_bar)
+    sx, sy, sv = tkm.kernelmatrix_vjp_abs_terms(x, None, kind, v, K_bar)
+    assert sy is None and bool((gx.abs() <= sx).all()) and bool(gv.abs() <= sv)
+    flipped = tkm.kernelmatrix_vjp_abs_terms(x, None, kind, -v, -K_bar)
+    torch.testing.assert_close(flipped[0], sx, rtol=0, atol=0)
+    torch.testing.assert_close(flipped[2], sv, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["same", "cross"])
+@pytest.mark.parametrize("kind", ["se", "matern32", "matern52"])
+def test_kernelmatrix_second_derivative_on_cpu_matches_jax(kind, same):
+    """On CPU tensors the reverse rule is plain PyTorch and differentiable
+    again: with L = Σ W⊙K, ∂/∂σ² and ∂/∂x of ⟨∂L/∂x, u⟩ through
+    `create_graph=True` match JAX's second derivatives (rtol 1e-9).  (On
+    the card the reverse rule is the VJP kernel, once differentiable.)"""
+    x, y, ell = _inputs(17, 48, 36, 2)
+    rng = np.random.default_rng(18)
+    W = rng.normal(size=(48, 48 if same else 36))
+    u = rng.normal(size=x.shape)
+    jk, tk = KINDS[kind]
+
+    def jloss(v, xx):
+        k = v * st.with_lengthscale(jk(), jnp.asarray(ell))
+        K = st.kernelmatrix(k, xx) if same else st.kernelmatrix(k, xx, jnp.asarray(y))
+        return jnp.sum(jnp.asarray(W) * K)
+
+    def jinner(v, xx):
+        return jnp.vdot(jax.grad(jloss, argnums=1)(v, xx), jnp.asarray(u))
+
+    jv, jx = jax.grad(jinner, argnums=(0, 1))(1.3, jnp.asarray(x))
+
+    v = torch.tensor(1.3, dtype=torch.float64, requires_grad=True)
+    xx = torch.tensor(x, requires_grad=True)
+    k = v * stt.with_lengthscale(tk(), torch.as_tensor(ell))
+    K = stt.kernelmatrix(k, xx) if same else stt.kernelmatrix(k, xx, torch.as_tensor(y))
+    (gx,) = torch.autograd.grad(torch.sum(torch.as_tensor(W) * K), xx, create_graph=True)
+    tv, tx = torch.autograd.grad(torch.sum(gx * torch.as_tensor(u)), (v, xx))
+    np.testing.assert_allclose(tv.item(), float(jv), rtol=1e-9)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-9, atol=1e-12 * np.abs(np.asarray(jx)).max())
 
 
 def _psd(rng, n, dtype=np.float64):
