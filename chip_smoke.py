@@ -130,7 +130,26 @@ the CUDA toolkit.  In one run it
    (var, l) at var = P⁻² (f the patch average) taken 512 images at a
    time, profiled; and kernel 1 timed at the examples' shapes beside its
    plain version and its bound; then the VJP kernel timed at the paths'
-   shapes (`vjp_rows`).
+   shapes (`vjp_rows`);
+14. runs the GEMM-precision tier (`precision_path`; every earlier phase
+   ran at the port's default, 'highest'): (a) the TF32 split kernel
+   against its plain version bit for bit on random bits with ties,
+   subnormals, ±0, ±inf and NaN at a factor panel (16384 × 1024), the
+   batched inverse blocks (4, 256, 256) and 2048 × 131072, and on strided
+   operands, timed beside its bound; (b) each product against f64 at the
+   factor's shapes (15360 × 1024 by 1024 × 1024, 1024 × 15360 by
+   15360 × 1024, 131072 × 2048 by 2048 × 2048): 'high' within 4× fp32's
+   own error, 'default' within 1e-3, same-sign operands printed beside;
+   (c) the flagship step and `predict` under each `gemm_precision` and
+   under `bwd_precision('high')` and `('default')`: 'highest' is the
+   default route bit for bit, 'high' holds phase 3's limits, the
+   'default' ones are readings; their times and GEMM busy time; (d) the
+   −ELBO step (N = 131072) and the gradient-enhanced step (N = 16384)
+   under 'high' at phases 9 and 11's limits against their f64
+   references; (e) the samplers' 'auto' policy under 'high': a 4096²
+   f32 factor scopes 'highest' with a warning and no split inside, 2048²
+   keeps 'high'; (f) TF32 is off after the phase and after an exception
+   raised on purpose inside a 'high' scope.
 
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
@@ -275,7 +294,18 @@ DERIV_GRAD_TOL = 2e-2
 #: value
 COMPONENT_NOISE = 1.0
 COMPONENT_TOL = 1e-3
+#: phase 14: the f64 references that phases 3, 4, 9 and 11 compute, kept
+#: for the GEMM-precision runs (filled as those phases run)
+F64_REFS = {}
+#: phase 14's products against f64, normalised by max(|A||B|): 'high'
+#: (3xTF32) within HIGH_OVER_FP32 times fp32's own error on normal data,
+#: 'default' (one TF32 pass) within DEFAULT_PRODUCT_TOL
+HIGH_OVER_FP32, DEFAULT_PRODUCT_TOL = 4.0, 1e-3
+#: the 'auto' policy's threshold (`inference/hmc.py:AUTO_HIGHEST_MIN_N`)
+#: and the size below it that keeps the scope in place
+AUTO_N, AUTO_SMALL_N = 4096, 2048
 PROFILE_KINDS = (
+    ("tf32_split", ("tf32_split",)),
     ("kernelmatrix", ("km_kernel",)),
     ("kernelmatrix_vjp", ("km_vjp",)),
     ("chol_block", ("chol_block_kernel",)),
@@ -499,6 +529,7 @@ def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
             "pseudo-point step is not finite")
     torch.cuda.empty_cache()
     val64, grad64 = E.pseudo_points_step(theta0.to(f64), data64)
+    F64_REFS["pseudo_point"] = (val64.item(), grad64.cpu())
     val_rel = abs(val.item() - val64.item()) / abs(val64.item())
     grad_rel = ((grad.to(f64) - grad64).abs().max() / grad64.abs().max()).item()
 
@@ -1006,11 +1037,15 @@ def derivatives_path(torch, dev, card):
     def own_rel(g, g64):
         return {k: abs(g[k].item() - g64[k].item()) / abs(g64[k].item()) for k in g64}
 
-    def components_at_low_condition(step, theta, data):
+    def components_at_low_condition(step, theta, data, keep=None):
         """The step's gradient at σ² = COMPONENT_NOISE, f32 against f64,
-        each component against its own value."""
+        each component against its own value (the f64 gradient kept in
+        F64_REFS[keep] for phase 14 when `keep` is given)."""
         th = dict(theta, noise=torch.tensor(COMPONENT_NOISE, dtype=f32, device=dev))
-        return own_rel(step(th, data)[1], step(d64(th), tuple(d64(t) for t in data))[1])
+        g64 = step(d64(th), tuple(d64(t) for t in data))[1]
+        if keep is not None:
+            F64_REFS[keep] = {k: v.item() for k, v in g64.items()}
+        return own_rel(step(th, data)[1], g64)
 
     def launched(label, need):
         torch.cuda.synchronize()
@@ -1073,9 +1108,11 @@ def derivatives_path(torch, dev, card):
     a = launched("derivative_step", ("kernelmatrix", "chol_block", "tri_inv_block"))
     peak_step = torch.cuda.max_memory_allocated() / 2**30
     val64, grad64 = E.derivative_step(d64(theta), tuple(d64(t) for t in data))
+    F64_REFS["derivative"] = (val64.item(), {k: g.item() for k, g in grad64.items()})
     a_val, a_grad = abs(val.item() - val64.item()) / abs(val64.item()), grad_rel(grad, grad64)
     a_own = own_rel(grad, grad64)
-    a_comp = components_at_low_condition(E.derivative_step, theta, data)
+    a_comp = components_at_low_condition(E.derivative_step, theta, data,
+                                         keep="derivative_components")
     # for scale, the same f32 step by the library's factor (cuSOLVER): the
     # gradient in the noise is a difference of two terms of order N/σ²
     # (0.5·tr K⁻¹ and 0.5·αᵀα), which f32 resolves to about cond·eps of them
@@ -1098,8 +1135,10 @@ def derivatives_path(torch, dev, card):
         lib_ms = E.derivative_predict(theta, data, noise=PRED_NOISE)
     lib_mean_err = {k: rel(lib_ms.mean[sl], ms64.mean[sl]) for k, sl in blocks}
     del lib_ms
-    var_err = {k: ((ms.var[sl].double() - ms64.var[sl]).abs().max()
-                   / prior64[k].var(d64(xp)).max()).item() for k, sl in blocks}
+    prior_var = {k: prior64[k].var(d64(xp)).max().item() for k, _ in blocks}
+    var_err = {k: ((ms.var[sl].double() - ms64.var[sl]).abs().max()).item() / prior_var[k]
+               for k, sl in blocks}
+    F64_REFS["derivative_predict"] = (ms64.mean.cpu(), ms64.var.cpu(), prior_var)
     var_err_of_post = {k: rel(ms.var[sl], ms64.var[sl]) for k, sl in blocks}
     a_cond = cond_estimate(torch, E.derivative_observation(d64(theta), tuple(d64(t) for t in data)),
                            theta["noise"].item())
@@ -2211,6 +2250,351 @@ def vjp_rows(torch, dev, card, plain_vjp, launches, inputs):
     return rows
 
 
+def split_edge_input(torch, shape, dev, seed):
+    """f32 random bits of `shape` on `dev` (every exponent; NaNs and
+    infinities among them), a seventh of them made exact ties of the
+    rounding, an eleventh subnormal, and ±0, ±inf, NaN and values whose
+    rounding overflows at the front."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32, device=dev)
+    flat = bits.view(-1)
+    flat[::7] = (flat[::7] & ~0x1FFF) | 0x1000
+    flat[1::11] &= ~0x7F800000
+    edge = [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFA00001, 0x7F7FFFFF,
+            0xFF7FF000, 0x7F7FEFFF, 0x00000001, 0x807FFFFF, 0x3F801000, 0xBF803000]
+    flat[:len(edge)] = torch.tensor([b - (1 << 32) if b >= 1 << 31 else b for b in edge],
+                                    dtype=torch.int32, device=dev)
+    return bits.view(torch.float32)
+
+
+def precision_path(torch, dev, card, step, theta, flagship_in):
+    """Phase 14: the GEMM-precision tier (`config.gemm_precision`,
+    `bwd_precision`, the samplers' 'auto' policy) on the card.  Every
+    earlier phase ran at the port's default, 'highest'.  Returns the split
+    kernel's row for the `kernels` line."""
+    import warnings
+
+    import stheno_tpu_torch as stt
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch import entry as E
+    from stheno_tpu_torch import params as P
+    from stheno_tpu_torch.cuda.tf32_split import tf32_split, tf32_split_plain
+    from stheno_tpu_torch.inference import hmc
+    from stheno_tpu_torch.ops import blocked_cholesky as bc
+    from stheno_tpu_torch.ops import chol as C
+
+    f32, f64 = torch.float32, torch.float64
+    cfg = stt.config
+    t_phase = time.perf_counter()
+    x, y, xp = flagship_in
+    theta_d = {k: v.detach() for k, v in theta.items()}
+
+    def same_bits(a, b):
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    # (a) the split kernel against its plain version, bit for bit, at the
+    # path's operand shapes: a panel of the factor (16384 × 1024), the
+    # batched inverse blocks (4, 256, 256), and the −ELBO's 2048 × 131072
+    split_checks, split_times = [], {}
+    for i, shape in enumerate(((N, 1024), (4, 256, 256), (PP_M, PP_N))):
+        xs = split_edge_input(torch, shape, dev, seed=40 + i)
+        hi, lo = tf32_split(xs)
+        ph, pl = tf32_split_plain(xs)
+        ok = same_bits(hi, ph) and same_bits(lo, pl)
+        finite = torch.isfinite(ph) & torch.isfinite(hi)
+        err = max((hi - ph)[finite].abs().max().item(), (lo - pl)[finite].abs().max().item())
+        split_checks.append({"shape": list(shape), "bit_for_bit": ok, "max_abs_err_finite": err,
+                             "nan": int(torch.isnan(xs).sum()), "inf": int(torch.isinf(xs).sum()),
+                             "subnormal": int(((xs != 0) & (xs.abs() < 2.0**-126)).sum())})
+        require(ok, f"tf32_split {shape}: the kernel differs from its plain version")
+        del hi, lo, ph, pl, finite
+        n_el = xs.numel()
+        split_times[str(list(shape))] = {
+            "ms": event_ms(lambda: tf32_split(xs), reps=20),
+            "plain_ms": event_ms(lambda: tf32_split_plain(xs), reps=3),
+            "bound_ms": bound(12 * n_el, 0)[0], "bytes": 12 * n_el}
+        del xs
+    # a transposed and a sliced operand, read in place by their strides
+    Xs = split_edge_input(torch, (N, 2048), dev, seed=43)
+    for v in (Xs.T, Xs[:, 1024:]):
+        hi, lo = tf32_split(v)
+        ph, pl = tf32_split_plain(v)
+        require(same_bits(hi, ph) and same_bits(lo, pl), "tf32_split: a strided operand differs")
+    del Xs, hi, lo, ph, pl, v
+    torch.cuda.empty_cache()
+    emit({"check": "tf32_split", "cases": split_checks, "timings": split_times, "card": card})
+
+    # (b) each product against f64 at the factor's shapes: a panel update
+    # (16384 − c) × 1024 by 1024 × 1024, the reverse sweep's
+    # 1024 × 15360 by 15360 × 1024, and the −ELBO's 131072 × 2048 by
+    # 2048 × 2048; normalised by max(|A||B|).  Held on normal operands
+    # and on same-sign ones (uniform on [0, 1), as a smooth kernel's factor
+    # panels mostly are), where the tensor cores' truncating f32
+    # accumulation makes 'high''s error grow with the inner dimension
+    # (the hi·hi chunks of `ops/blocked_cholesky.py:_products`)
+    prod_rows = []
+    g = torch.Generator(device=dev).manual_seed(44)
+    for m_, k_, n_ in ((N - 1024, 1024, 1024), (1024, N - 1024, 1024), (PP_N, PP_M, PP_M)):
+        for dist in ("normal", "uniform"):
+            draw = torch.randn if dist == "normal" else torch.rand
+            A = draw(m_, k_, generator=g, device=dev)
+            B = draw(k_, n_, generator=g, device=dev)
+            ref = A.double() @ B.double()
+            scale = (A.double().abs() @ B.double().abs()).max().item()
+            row = {"shape": [m_, k_, n_], "data": dist}
+            for p in ("highest", "high", "default"):
+                with cfg.gemm_precision(p):
+                    row[f"{p}_err"] = (bc._mm(A, B).double() - ref).abs().max().item() / scale
+                    row[f"{p}_ms"] = event_ms(lambda: bc._mm(A, B), reps=5)
+            prod_rows.append(row)
+            del A, B, ref
+            torch.cuda.empty_cache()
+            require(row["high_err"] <= HIGH_OVER_FP32 * row["highest_err"],
+                    f"'high' product {row['shape']} {dist}: {row['high_err']} > {HIGH_OVER_FP32}x "
+                    f"fp32's {row['highest_err']}")
+            require(row["default_err"] <= DEFAULT_PRODUCT_TOL,
+                    f"'default' product {row['shape']} {dist}: {row['default_err']} > "
+                    f"{DEFAULT_PRODUCT_TOL}")
+    emit({"check": "precision_products", "high_over_fp32": HIGH_OVER_FP32,
+          "default_tolerance": DEFAULT_PRODUCT_TOL, "rows": prod_rows, "card": card})
+    # the host's time for one product at a launch-bound size (256²) at each
+    # precision, and for one split: LAUNCH_REPS back to back, one
+    # synchronize, over LAUNCH_REPS (as `launch_host_ms`)
+    A = torch.randn(256, 256, generator=g, device=dev)
+
+    def burst(fn):
+        def run():
+            for _ in range(LAUNCH_REPS):
+                fn()
+        return run
+
+    host_us = {}
+    for p in ("highest", "high", "default"):
+        with cfg.gemm_precision(p):
+            host_us[p] = host_ms(burst(lambda: bc._mm(A, A)), reps=5) / LAUNCH_REPS * 1e3
+    host_us["split"] = host_ms(burst(lambda: tf32_split(A)), reps=5) / LAUNCH_REPS * 1e3
+    emit({"precision_host_us_per_call": host_us, "shape": "256x256 f32", "card": card})
+    del A
+    numerics_policy(torch)
+
+    # (c) the flagship step and `predict` at N = 16384 under each GEMM
+    # precision, and under a backward precision with the forward at
+    # 'highest'.  'highest' is the default route bit for bit; 'high' (and
+    # a 'high' backward) holds phase 3's limits.  'default' and a 'default'
+    # backward are readings, not checks: the reference itself warns
+    # against them (NaN at N = 16k in its forward, a 56× wrong gradient in
+    # its backward, `stheno_tpu/ops/blocked_cholesky.py:28-36, 626-632`);
+    # their errors, or NaN, are printed as they come
+    ref_val, ref_grad = F64_REFS["flagship"]
+    mean64, var64, mean_tol, var_tol = F64_REFS["predict"]
+    VAL_TOL, GRAD_TOL = 1e-4, 5e-3  # phase 3's
+    v_def, g_def = step(theta)
+    m_def, s_def = E.predict(theta_d, x, y, xp)
+
+    def assemble():
+        with torch.no_grad():
+            return E.build(theta_d)(stt.GPPPInput("f3", x), theta_d["noise"]).cov()
+
+    def chol_fwd():
+        with torch.no_grad():
+            C.cholesky_psd(assemble())
+
+    def chol_grad():
+        K = assemble().requires_grad_(True)
+        L = C.cholesky_psd(K)
+        torch.autograd.grad(torch.sum(L * L), K)
+
+    configs = (("highest", None), ("high", None), ("default", None), ("highest", "high"),
+               ("highest", "default"))
+    flag_rows = []
+    split_launches = None
+    for gemm, bwd in configs:
+        label = f"gemm={gemm} bwd={bwd or 'follow'}"
+        with cfg.gemm_precision(gemm), cfg.bwd_precision(bwd):
+            kern.reset_counters()
+            val, grad = step(theta)
+            torch.cuda.synchronize()
+            counts, _ = counts_now(kern)
+            mean, var_p = E.predict(theta_d, x, y, xp)
+            row = {"config": label, "launches": counts,
+                   "value_rel_err": abs(val.item() - ref_val) / abs(ref_val),
+                   "grad_rel_err": {k: abs(grad[k].item() - ref_grad[k]) / abs(ref_grad[k])
+                                    for k in grad},
+                   "mean_max_abs_err": (mean.to(f64) - mean64).abs().max().item(),
+                   "var_max_abs_err": (var_p.to(f64) - var64).abs().max().item(),
+                   "step_ms": host_ms(lambda: step(theta), reps=3),
+                   "chol_fwd_ms": host_ms(chol_fwd, reps=3),
+                   "chol_grad_ms": host_ms(chol_grad, reps=3),
+                   "predict_ms": host_ms(lambda: E.predict(theta_d, x, y, xp), reps=3)}
+            prof = profile_ms(lambda: step(theta))
+            row["profile_step"] = {k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "by_kind_ms",
+                                                            "device_idle_share")}
+        flag_rows.append(row)
+        emit({"precision_flagship": row, "card": card})
+        uses_split = gemm == "high" or bwd == "high"
+        require((counts["tf32_split"] > 0) == uses_split,
+                f"{label}: split launches {counts['tf32_split']} (expected {'some' if uses_split else 'none'})")
+        if gemm == "high" and bwd is None:
+            split_launches = counts["tf32_split"]
+        if gemm == "highest" and bwd is None:
+            require(torch.equal(val, v_def) and all(torch.equal(grad[k], g_def[k]) for k in grad)
+                    and torch.equal(mean, m_def) and torch.equal(var_p, s_def),
+                    "'highest' differs from the default route")
+        if "default" not in (gemm, bwd):
+            # phase 3's checks: the value, and each component against its own
+            # f64 value
+            require(row["value_rel_err"] <= VAL_TOL, f"{label}: value rel err {row['value_rel_err']}")
+            for k, e in row["grad_rel_err"].items():
+                require(e <= GRAD_TOL, f"{label}: gradient {k} rel err {e} > {GRAD_TOL}")
+            require(row["mean_max_abs_err"] <= mean_tol and row["var_max_abs_err"] <= var_tol,
+                    f"{label}: predict mean {row['mean_max_abs_err']} or var "
+                    f"{row['var_max_abs_err']} past {mean_tol}, {var_tol}")
+        del val, grad, mean, var_p
+        torch.cuda.empty_cache()
+    numerics_policy(torch)
+
+    # (d) the −ELBO step at N = 131072, M = 2 × 2048, and the
+    # gradient-enhanced step at N = 16384 (condition about 2.4e5) under
+    # 'high', against their f64 references.  The −ELBO step is held to
+    # phase 9's limits.  The gradient-enhanced step gets every comparison
+    # of phase 11: the value, each component at σ² = COMPONENT_NOISE and
+    # the predict variances are held to its limits; its noise gradient
+    # (of the largest component) and its predict means are readings beside
+    # their limits (`holds`), not checks: 'high' is measured past them, the
+    # noise gradient at the accuracy probe's data seed 2 (5.9e-2 against
+    # 2e-2) and the f″ mean at this seed (1.28e-3 against 1e-3), and no
+    # hi·hi chunk holds both these and phase 3's flagship limits
+    # (`accuracy_probe --part chunks`; PERF.md §6)
+    data = E.pseudo_points_data(PP_N, PP_M, f32, dev)
+    theta0, _ = P.init(E.pseudo_points_spec(data[2]))
+    pp_val64, pp_grad64 = F64_REFS["pseudo_point"]
+    with cfg.gemm_precision("high"):
+        kern.reset_counters()
+        pv, pg = E.pseudo_points_step(theta0, data)
+        torch.cuda.synchronize()
+        pp_counts, _ = counts_now(kern)
+        pp_high_ms = host_ms(lambda: E.pseudo_points_step(theta0, data), reps=2)
+        pp_prof = profile_ms(lambda: E.pseudo_points_step(theta0, data))
+    pp_default_ms = host_ms(lambda: E.pseudo_points_step(theta0, data), reps=2)
+    pp_val_rel = abs(pv.item() - pp_val64) / abs(pp_val64)
+    pp_grad_rel = ((pg.cpu().double() - pp_grad64).abs().max() / pp_grad64.abs().max()).item()
+    del data, pv, pg
+    torch.cuda.empty_cache()
+    xf, xd, dy, dxp, dtheta = E.derivative_data(DERIV_N, DERIV_M, f32, dev)
+    ddata = (xf, xd, dy, dxp)
+    d_val64, d_grad64 = F64_REFS["derivative"]
+    with cfg.gemm_precision("high"):
+        kern.reset_counters()
+        dv, dg = E.derivative_step(dtheta, ddata)
+        torch.cuda.synchronize()
+        d_counts, _ = counts_now(kern)
+        d_high_ms = host_ms(lambda: E.derivative_step(dtheta, ddata), reps=3)
+        d_th1 = dict(dtheta, noise=torch.tensor(COMPONENT_NOISE, dtype=f32, device=dev))
+        d_g1 = E.derivative_step(d_th1, ddata)[1]
+        dms = E.derivative_predict(dtheta, ddata, noise=PRED_NOISE)
+    d_default_ms = host_ms(lambda: E.derivative_step(dtheta, ddata), reps=3)
+    d_val_rel = abs(dv.item() - d_val64) / abs(d_val64)
+    d_gmax = max(abs(v) for v in d_grad64.values())
+    d_grad_rel = max(abs(dg[k].item() - d_grad64[k]) for k in d_grad64) / d_gmax
+    comp64 = F64_REFS["derivative_components"]
+    d_comp = {k: abs(d_g1[k].item() - comp64[k]) / abs(comp64[k]) for k in comp64}
+    dmean64, dvar64, dprior_var = F64_REFS["derivative_predict"]
+    d_mean_err, d_var_err = {}, {}
+    for i, k in enumerate(("f", "df", "ddf")):
+        sl = slice(i * DERIV_M, (i + 1) * DERIV_M)
+        d_mean_err[k] = ((dms.mean[sl].double().cpu() - dmean64[sl]).abs().max()
+                         / dmean64[sl].abs().max()).item()
+        d_var_err[k] = (dms.var[sl].double().cpu() - dvar64[sl]).abs().max().item() / dprior_var[k]
+    del ddata, dv, dg, d_g1, dms
+    emit({"precision_paths": {
+        "pseudo_point": {"precision": "high", "value_rel_err": pp_val_rel, "tolerance": PP_VAL_TOL,
+                         "grad_err_of_largest": pp_grad_rel, "grad_tolerance": 5e-3,
+                         "launches": pp_counts, "vfe_step_ms_high": pp_high_ms,
+                         "vfe_step_ms_highest": pp_default_ms,
+                         "profile_step_high": {k: pp_prof.get(k) for k in ("device_busy_ms", "by_kind_ms")}},
+        "derivative": {"precision": "high", "value_rel_err": d_val_rel, "tolerance": 1e-4,
+                       "grad_err_of_largest": d_grad_rel, "grad_tolerance": DERIV_GRAD_TOL,
+                       "holds": {"grad_of_largest": d_grad_rel <= DERIV_GRAD_TOL,
+                                 "means": all(e <= 1e-3 for e in d_mean_err.values())},
+                       f"grad_own_rel_err_at_noise_{COMPONENT_NOISE}": d_comp,
+                       "component_tolerance": COMPONENT_TOL, "mean_rel_err_f64": d_mean_err,
+                       "var_err_f64_of_prior_var": d_var_err, "predict_tolerance": 1e-3,
+                       "launches": d_counts, "step_ms_high": d_high_ms, "step_ms_highest": d_default_ms},
+        "card": card}})
+    require(pp_counts["tf32_split"] > 0 and d_counts["tf32_split"] > 0,
+            "the 'high' −ELBO or gradient-enhanced step launched no split")
+    require(pp_val_rel <= PP_VAL_TOL and pp_grad_rel <= 5e-3,
+            f"'high' −ELBO step: value {pp_val_rel}, gradient {pp_grad_rel} past phase 9's limits")
+    require(d_val_rel <= 1e-4, f"'high' gradient-enhanced step: value {d_val_rel} past phase 11's 1e-4")
+    for k, e in d_comp.items():
+        require(e <= COMPONENT_TOL, f"'high' gradient-enhanced step at σ² = {COMPONENT_NOISE}: "
+                                    f"gradient in {k} off by {e} of itself > {COMPONENT_TOL}")
+    for k, e in d_var_err.items():
+        require(e <= 1e-3, f"'high' gradient-enhanced predict {k}: var err {e} (of the prior "
+                           f"variance) past 1e-3")
+    torch.cuda.empty_cache()
+    numerics_policy(torch)
+
+    # (e) the samplers' 'auto' policy under `gemm_precision('high')`: a
+    # log-density that factorises one f32 4096² covariance (the blocked
+    # route: a single matrix on the card) warns and scopes 'highest', and no
+    # split is launched inside that scope; at N = 2048 'high' stays
+    auto = {}
+    with cfg.gemm_precision("high"):
+        for n_auto in (AUTO_N, AUTO_SMALL_N):
+            fn, q0, _ = E.nuts_logdensity(E.nuts_data(n_auto, f32, dev))
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                ctx, resolved = hmc._precision_policy("auto", fn, q0)
+            with ctx:
+                kern.reset_counters()
+                qq = q0.clone().requires_grad_(True)
+                torch.autograd.grad(fn(qq), qq)
+                torch.cuda.synchronize()
+                inside, _ = counts_now(kern)
+                active = bc._active_prec().name
+            auto[n_auto] = {"resolved": None if resolved is None else resolved.name,
+                            "warned": any("precision='auto'" in str(m.message) for m in w),
+                            "active_inside": active, "launches_inside": inside}
+        # through the entry point: a short warmup of 2 chains at N = 4096
+        fn, q0, _ = E.nuts_logdensity(E.nuts_data(AUTO_N, f32, dev))
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            hmc.nuts_warmup(0, fn, q0, num_warmup=1, num_chains=2, max_depth=2)
+        auto["nuts_warmup_warned"] = any("precision='auto'" in str(m.message) for m in w)
+    emit({"precision_auto_policy": auto, "card": card})
+    big, small = auto[AUTO_N], auto[AUTO_SMALL_N]
+    require(big["resolved"] == "HIGHEST" and big["warned"] and big["active_inside"] == "HIGHEST"
+            and big["launches_inside"]["tf32_split"] == 0 and big["launches_inside"]["chol_block"] > 0,
+            f"'auto' at N = {AUTO_N}: {big}")
+    require(small["resolved"] is None and not small["warned"] and small["active_inside"] == "HIGH"
+            and small["launches_inside"]["tf32_split"] == 0, f"'auto' at N = {AUTO_SMALL_N}: {small}")
+    require(auto["nuts_warmup_warned"], "nuts_warmup's 'auto' did not warn at N = 4096")
+
+    # (f) the TF32 switch: off after the phase, and back after an exception
+    # raised on purpose inside a 'high' scope's products
+    A = torch.randn(512, 512, device=dev)
+    try:
+        with cfg.gemm_precision("high"), bc._tf32():
+            bc._mm(A, A)
+            raise KeyboardInterrupt("on purpose")
+    except KeyboardInterrupt:
+        pass
+    numerics_policy(torch)
+    phase_s = time.perf_counter() - t_phase
+    emit({"precision_phase_s": phase_s})
+    main_shape = split_times[str([N, 1024])]
+    return {"name": "tf32_split", "route": "cuda", "source": "stheno_tpu_torch/cuda/csrc/tf32_split.cu",
+            "replaces": "none: stheno_tpu/ops/blocked_cholesky.py:69 _mm at HIGH (XLA splits a bf16_3x "
+                        "dot's operands itself; no pl.pallas_call)",
+            "launches": split_launches, "max_abs_err": max(c["max_abs_err_finite"] for c in split_checks),
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shape": f"({N}, 1024) f32, a factor panel",
+            "path": "flagship step under gemm_precision('high') (phase 14)",
+            "by_shape": split_times, "launches_pseudo_point_step_high": pp_counts["tf32_split"],
+            "launches_derivative_step_high": d_counts["tf32_split"]}
+
+
 def launch_host_ms(torch, dev):
     """Host time of one kernel-1 launch at 4096 × 512, D = 9 (f32): `host_ms`
     of LAUNCH_REPS launches back to back ending in one synchronize, over
@@ -2466,6 +2850,7 @@ def main():
     ref = 0.5 * (a64 @ a64) + torch.log(torch.diagonal(L64)).sum() + 0.5 * N * math.log(2 * math.pi)
     ref_grad = dict(zip(th64, torch.autograd.grad(ref, list(th64.values()))))
     del K64, L64
+    F64_REFS["flagship"] = (ref.item(), {k: g.item() for k, g in ref_grad.items()})
     val_rel = abs(val.item() - ref.item()) / abs(ref.item())
     grad_rel = {k: abs(grad[k].item() - ref_grad[k].item()) / abs(ref_grad[k].item())
                 for k in grad}
@@ -2510,6 +2895,7 @@ def main():
     var_err = (var_p.to(f64) - var64).abs().max().item()
     MEAN_TOL = 1e-3 * mean64.abs().max().item()
     VAR_TOL = 1e-3 * t64["v1"].item()
+    F64_REFS["predict"] = (mean64, var64, MEAN_TOL, VAR_TOL)
     emit({"predict_check": {"mean_max_abs_err": mean_err, "mean_tolerance": MEAN_TOL,
                             "var_max_abs_err": var_err, "var_tolerance": VAR_TOL,
                             "mean_range": [mean64.min().item(), mean64.max().item()],
@@ -3045,6 +3431,10 @@ def main():
     require(not plain_vjp_on_card,
             f"a CUDA tensor reached the plain kernelmatrix_vjp on a path: {plain_vjp_on_card[:5]}")
     tkm.kernelmatrix_vjp = plain_vjp
+
+    # ---- 14. the GEMM-precision tier --------------------------------------------
+    torch.cuda.empty_cache()
+    kernels.append(precision_path(torch, dev, card, step, theta, (x, y, xp)))
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

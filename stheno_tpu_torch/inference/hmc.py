@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -506,41 +506,99 @@ def _find_reasonable_eps(ld_and_grad, q, logp, grad, inv_mass, r0):
     return torch.where(going_up, eps * 0.5, eps)
 
 
+#: N at and above which `precision='auto'` pins 'highest' GEMMs for an f32
+#: log-density (reference `inference/hmc.py:480-487`): on its TPU, exact-GP
+#: NUTS at N = 4096 f32 degraded silently at HIGH (bf16_3x; R̂ 1.4–2.2, no
+#: divergences), its signal-variance gradient being cancellation noise.  On
+#: the card 'high' is 3xTF32; `accuracy_probe` reads that gradient there.
+AUTO_HIGHEST_MIN_N = 4096
+
+
 @contextmanager
-def _precision_scope(precision):
-    """The run's matmul precision.  'auto' and 'highest' pin full FP32 over
-    TF32 for the run and check it (a GP log-density at N ≳ 4096 in f32
-    mixes badly on a reduced-precision gradient); None leaves the setting
-    alone.  The port has no lower precision to offer."""
+def _tf32_off(scope):
+    """`scope`, with the TF32 switch held off for the run and restored on
+    any exit (`ops/blocked_cholesky.py:_tf32`): 'highest' is full fp32 in
+    every matmul, also where a caller has turned TF32 on."""
+    from stheno_tpu_torch.ops import blocked_cholesky as _bc
+
+    with _bc._tf32(False), scope:
+        yield
+
+
+def _precision_policy(precision, flat_logdensity, q0):
+    """Resolve a `precision` argument into (context manager, resolved
+    precision or None), as the reference's `_precision_policy`:
+
+    - None: no scope (the caller manages the precision);
+    - 'auto': find what the log-density factorises, by evaluating it once at
+      `q0` (the first chain's initial position) under `torch.no_grad()`
+      inside `ops.chol.record_chol_sizes()`, where the reference traces it
+      with `jax.eval_shape`.  If it factorises an f32 covariance of N ≥
+      `AUTO_HIGHEST_MIN_N` and the active GEMM precision is below
+      'highest', scope 'highest' over the run and warn once.  Otherwise, or
+      when the evaluation raises, no scope.  At 'highest' already nothing is
+      evaluated: the answer is no scope whatever the sizes;
+    - anything else: normalised (`config.gemm_precision`'s names, any case,
+      or a `config.Precision`) and scoped as given.
+
+    Wherever the run is at 'highest' by this policy (explicit, 'auto' at
+    'highest' already, or pinned by 'auto'), the scope also holds the TF32
+    switch off (`_tf32_off`), so a caller's TF32 does not reach the run.
+    """
+    from stheno_tpu_torch import config as _cfg
+    from stheno_tpu_torch.ops import blocked_cholesky as _bc
+    from stheno_tpu_torch.ops import chol as _chol
+
     if precision is None:
-        yield
-        return
-    if precision not in ("auto", "highest"):
-        raise ValueError(
-            f"precision={precision!r}: the port runs its matmuls in full FP32 ('auto' or "
-            f"'highest') or leaves the setting alone (None); a lower precision (TF32 on the "
-            f"card) is an open decision, see ROADMAP.md §A")
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+        return nullcontext(), None
+    if precision != "auto":
+        p = _cfg._norm_precision(precision)
+        scope = _cfg.gemm_precision(p)
+        return (_tf32_off(scope) if p is _cfg.Precision.HIGHEST else scope), p
+    if _bc._active_prec() is _cfg.Precision.HIGHEST:
+        return _tf32_off(nullcontext()), None
     try:
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("precision: TF32 matmuls are still on inside the scope")
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
+        with torch.no_grad(), _chol.record_chol_sizes() as sizes:
+            flat_logdensity(q0)
+    except Exception:
+        # a log-density that cannot be evaluated on its own here: no policy
+        return nullcontext(), None
+    big_f32 = [n for n, dt in sizes if n >= AUTO_HIGHEST_MIN_N and dt == torch.float32]
+    if not big_f32:
+        return nullcontext(), None
+    warnings.warn(
+        f"precision='auto': the log-density factorises an N={max(big_f32)} float32 "
+        f"covariance, so all GEMMs in this run are pinned to 'highest' precision (below it "
+        f"the cancellation-dominated variance gradient can degrade mixing silently at "
+        f"N>={AUTO_HIGHEST_MIN_N}).  Pass precision=None to opt out, or an explicit "
+        f"precision to choose.",
+        stacklevel=3,
+    )
+    return _tf32_off(_cfg.gemm_precision(_cfg.Precision.HIGHEST)), _cfg.Precision.HIGHEST
 
 
-def _check_mixing(qs, num_chains, num_samples):
+def _check_mixing(qs, dt, resolved_prec, num_chains, num_samples):
     """Warn when the chains have not mixed (max split-R̂ above
-    `RHAT_WARN_THRESHOLD`)."""
+    `RHAT_WARN_THRESHOLD`), with a hint when an f32 run's GEMMs ran below
+    'highest'."""
     if num_chains < 2 or num_samples < 8:
         return
     rhat = float(torch.max(potential_scale_reduction(qs)))
     if not math.isfinite(rhat) or rhat <= RHAT_WARN_THRESHOLD:
         return
+    from stheno_tpu_torch.config import Precision
+    from stheno_tpu_torch.ops import blocked_cholesky as _bc
+
+    prec = resolved_prec if resolved_prec is not None else _bc._active_prec()
+    hint = ""
+    if dt == torch.float32 and prec is not Precision.HIGHEST:
+        hint = ("  This run's GEMMs ran below 'highest' precision; exact-GP posteriors at "
+                "N>~4096 f32 may degrade silently there (cancellation-noise gradients) - "
+                "re-run under `with stheno_tpu_torch.config.gemm_precision('highest')` or "
+                "leave precision='auto'.")
     warnings.warn(
         f"NUTS chains have not mixed: max split-R-hat = {rhat:.3f} > {RHAT_WARN_THRESHOLD}.  "
-        f"Treat these draws as unconverged (more warmup / reparametrise / check gradients).",
+        f"Treat these draws as unconverged (more warmup / reparametrise / check gradients).{hint}",
         stacklevel=3,
     )
 
@@ -645,8 +703,12 @@ def nuts_warmup(
     bit on one device: iteration i always draws from the generator of
     (seed, warmup, i).
 
-    `precision`: 'auto' (default) or 'highest' pin FP32 matmuls for the
-    run; None leaves them alone (`_precision_scope`).
+    `precision`: the GEMM-precision policy of the whole warmup: 'auto'
+    (default: 'highest' when the log-density factorises a large f32
+    covariance and the active precision is below it, see
+    `_precision_policy`), None (no scope), or an explicit precision
+    ('default' | 'high' | 'highest' or a `config.Precision`).  Pass the same
+    value to the matching `run_nuts`.
     """
     if num_warmup < 1:
         # a run without warmup is `run_nuts(..., resume_state=...)`'s job
@@ -658,8 +720,10 @@ def nuts_warmup(
     if a > 0 and state is None:
         raise ValueError("resuming a warmup segment (a > 0) requires `state`")
     flat0, unravel = ravel_pytree(init_position)
-    step_fn = _kernel(lambda qf: logdensity_fn(unravel(qf)), kernel, max_depth, num_hmc_steps)
-    with _precision_scope(precision), torch.no_grad():
+    flat_logdensity = lambda qf: logdensity_fn(unravel(qf))  # noqa: E731
+    step_fn = _kernel(flat_logdensity, kernel, max_depth, num_hmc_steps)
+    prec_ctx, _ = _precision_policy(precision, flat_logdensity, flat0)
+    with prec_ctx, torch.no_grad():
         if a == 0:
             state = _warmup_init(seed, step_fn, flat0, num_chains, init_jitter)
         return _warm_range(seed, step_fn, target_accept, state, num_warmup, a, b)
@@ -708,17 +772,19 @@ def run_nuts(
     taken gives the uninterrupted run's draws bit for bit on one device.
 
     `precision` as in `nuts_warmup`.  `check_rhat` warns when the max
-    split-R̂ over the flat coordinates exceeds `RHAT_WARN_THRESHOLD`.
+    split-R̂ over the flat coordinates exceeds `RHAT_WARN_THRESHOLD`, with a
+    precision hint when an f32 run's GEMMs ran below 'highest'.
 
     `chains=(a, b, num_chains)` runs only chains [a, b) of the run, with the
     numbers they draw in the whole run; `gather` then maps this process's
     draws to every chain's for the R̂ check (`parallel.run_nuts_sharded`).
     """
     flat0, unravel = ravel_pytree(init_position)
-    step_fn = _kernel(lambda qf: logdensity_fn(unravel(qf)), kernel, max_depth, num_hmc_steps,
-                      chains)
+    flat_logdensity = lambda qf: logdensity_fn(unravel(qf))  # noqa: E731
+    step_fn = _kernel(flat_logdensity, kernel, max_depth, num_hmc_steps, chains)
     dev = flat0.device
-    with _precision_scope(precision), torch.no_grad():
+    prec_ctx, resolved_prec = _precision_policy(precision, flat_logdensity, flat0)
+    with prec_ctx, torch.no_grad():
         if resume_state is None:
             st = _warmup_init(seed, step_fn, flat0, num_chains, init_jitter, chains)
             st = _warm_range(seed, step_fn, target_accept, st, num_warmup, 0, num_warmup)
@@ -735,9 +801,9 @@ def run_nuts(
         info = NUTSInfo(*(torch.stack(field, dim=1) for field in zip(*infos))) if infos else None
     if check_rhat:
         if chains is None:
-            _check_mixing(qs, C, num_samples)
+            _check_mixing(qs, flat0.dtype, resolved_prec, C, num_samples)
         else:
-            _check_mixing(gather(qs), chains[2], num_samples)
+            _check_mixing(gather(qs), flat0.dtype, resolved_prec, chains[2], num_samples)
     samples = unravel(qs)
     if return_state:
         return samples, info, ChainState(q, logp, grad, eps, inv_mass)

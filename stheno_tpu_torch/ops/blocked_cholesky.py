@@ -31,15 +31,22 @@ the base blocks; `torch_chol_lower` and `torch_tri_inv_lower` are the
 library versions.  The port's defaults are kernels 2 and 3 for f32, and
 the library versions for any other dtype (`default_bases`).  The
 reference's defaults are XLA's built-ins, with its Pallas kernels as the
-swap-in (reference `blocked_cholesky.py:81-130`).
+swap-in (reference `blocked_cholesky.py:81-130`).  The deprecated setters
+`set_base_cholesky`, `set_base_tri_inv`, `set_bwd_params`,
+`set_gemm_precision` and `set_bwd_precision` move the module defaults
+under the scopes, as in the reference.
 
-Numerics: every GEMM here must run in full fp32.  On the TPU, low-precision
+Numerics: the GEMMs go through `_mm`, at the scoped `config.gemm_precision`
+(the reverse rule at `config.bwd_precision` where one is scoped).  The
+port's default is 'highest', full fp32 with TF32 off, where `_mm` is
+exactly `a @ b`; 'high' is 3xTF32 (the split kernel,
+`cuda/tf32_split.py`, then three TF32 products), 'default' one TF32
+product.  f64 operands ignore the setting.  On the TPU, low-precision
 GEMMs inside the left-looking accumulation made the late diagonal blocks
 indefinite (NaN at N=16k) and a low-precision backward gave gradients 56×
-wrong (reference `blocked_cholesky.py:30-37`, `:626-632`).  PyTorch's
-defaults (`torch.backends.cuda.matmul.allow_tf32 = False`,
-`torch.get_float32_matmul_precision() == "highest"`) give that; callers
-must not enable TF32 around this module.
+wrong (reference `blocked_cholesky.py:28-37`, `:626-632`); see
+`PERF.md` §6 for what the card reads.  TF32 is switched on only around
+the products of a CUDA `_mm` below 'highest'.
 
 The update sums its inner dimension panel by panel (at most `block` terms
 in one GEMM, then one f32 add per earlier panel), as a right-looking
@@ -53,16 +60,172 @@ cuSOLVER's (`stheno_tpu_torch/accuracy_probe.py`).
 The factor depends on tril(A) only: panels read lower column slabs and the
 base kernel ignores block-upper content (reference `blocked_cholesky.py:73-78`).
 The reference's other TRSMs (the backward base case, the solves' diagonal
-blocks) are `torch.linalg.solve_triangular`.  Left out: the precision knobs
-(`gemm_precision`, `bwd_precision`) and the deprecated `set_*` setters.
+blocks) are `torch.linalg.solve_triangular`.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
+
 import torch
 
 from stheno_tpu_torch import config as _cfg
+from stheno_tpu_torch.config import Precision
 from stheno_tpu_torch.cuda.chol_block import chol_block, tri_inv_block
+from stheno_tpu_torch.cuda.tf32_split import tf32_round_plain, tf32_split
+
+#: Default GEMM precision.  A kept divergence: the reference's is HIGH
+#: (bf16_3x), tuned against the TPU's MXU; the port stays at full fp32
+#: until a decision on the card's readings (`PERF.md` §6, `ROADMAP.md` §A)
+#: says otherwise, so that no path's arithmetic moves with this module.
+_PREC = Precision.HIGHEST
+
+#: Optional precision of the Cholesky reverse rule alone (None: follow the
+#: forward's).  The reference measured 'default' there 56× wrong on its
+#: TPU (reference `blocked_cholesky.py:626-632`).
+_BWD_PREC = None
+
+
+def set_gemm_precision(p):
+    """Set the module default GEMM precision ('default' | 'high' |
+    'highest' or a `Precision`); returns the previous one.  None raises: a
+    forward precision is always required.  DEPRECATED: prefer the scoped
+    ``with stheno_tpu_torch.config.gemm_precision(p): ...``, which cannot
+    leak."""
+    global _PREC
+    if p is None:
+        raise ValueError(
+            "set_gemm_precision(None) is invalid (a forward precision is always required); use "
+            "set_bwd_precision(None) to make the backward follow the forward")
+    prev = _PREC
+    _PREC = _cfg._norm_precision(p)
+    return prev
+
+
+def set_bwd_precision(p):
+    """Set the module default precision of the Cholesky reverse rule (None:
+    follow the forward); returns the previous one.  DEPRECATED: prefer the
+    scoped ``with stheno_tpu_torch.config.bwd_precision(p): ...``."""
+    global _BWD_PREC
+    prev = _BWD_PREC
+    _BWD_PREC = None if p is None else _cfg._norm_precision(p)
+    return prev
+
+
+def _active_prec():
+    return _cfg.active_override("gemm_precision", _PREC)
+
+
+def _active_bwd_prec():
+    return _cfg.active_override("bwd_precision", _BWD_PREC)
+
+
+@contextmanager
+def _tf32(on=True):
+    """TF32 tensor-core products for the block (or, with `on=False`, none).
+    The flag is process-wide (the port drives the card from one Python
+    thread); it is restored on any exit.  Only the legacy switch is used,
+    the one every reader in the port checks: newer PyTorch refuses a mix of
+    it and `fp32_precision`."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _add_product(out, a, b):
+    """out += a @ b, the sum folded into the GEMM where it can be."""
+    if out.dim() == 2 and a.dim() == 2 and b.dim() == 2:
+        return out.addmm_(a, b)
+    if out.dim() == 3 and a.dim() == 3 and b.dim() == 3:
+        return out.baddbmm_(a, b)
+    return out.add_(a @ b)
+
+
+def _products(a, b, prec):
+    """a @ b of f32 operands below 'highest' (module note).  On the card:
+    'default' is one TF32 product; 'high' splits each operand once (the
+    split kernel) and adds (hi_a lo_b + lo_a hi_b) + hi_a hi_b, small
+    terms first, the last product in inner-dimension chunks of at most
+    256.  On the CPU, which has no tensor cores and whose flags are left
+    alone, the TF32 rounding is written out: 'default' multiplies the
+    operands rounded to TF32 in fp32; 'high' multiplies the split parts in
+    the same order and chunks, each lo rounded to TF32 once more as the
+    tensor core would."""
+    on_card = a.is_cuda
+    if prec is Precision.DEFAULT:
+        if on_card:
+            with _tf32():
+                return a @ b
+        return tf32_round_plain(a) @ tf32_round_plain(b)
+    ha, la = tf32_split(a)
+    hb, lb = tf32_split(b)
+    if not on_card:
+        la, lb = tf32_round_plain(la), tf32_round_plain(lb)
+    # The tensor cores' f32 accumulation truncates, so a product's error
+    # grows with its inner dimension (biased, where fp32's round-to-nearest
+    # errors cancel), and the factor adds these errors up panel by panel.
+    # 256 is the chunk at which the flagship's gradient comes nearest
+    # fp32's (`chip_smoke.py` phase 3's limit 5e-3): `accuracy_probe --part
+    # chunks` on an H100 (700 W) read its v1 4.6e-3 of itself at 1024 (the
+    # gradient-enhanced noise gradient 3.2e-2 of the largest at seed 0),
+    # 2.3e-3 at 256 (1.5e-2), 1.2e-2 at 128 and 9.2e-3 at 64 (6.8e-4).  No
+    # chunk holds both paths at every seed (PERF.md §6).  The small terms
+    # are one product each: their error is 2⁻¹¹ smaller.
+    chunk, k = 256, a.shape[-1]
+    with _tf32() if on_card else nullcontext():
+        out = ha @ lb
+        _add_product(out, la, hb)
+        for j in range(0, k, chunk):
+            _add_product(out, ha[..., j : j + chunk], hb[..., j : j + chunk, :])
+    return out
+
+
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """a @ b below 'highest'.  The backward is the two products at the
+    precision of the forward (as XLA differentiates a dot at its
+    precision), through this Function again, so a second derivative
+    sees them too.  No `vmap` rule: a vmapped factor takes `torch.linalg`
+    (`ops/chol.py:_use_blocked`) and never reaches here."""
+
+    @staticmethod
+    def forward(a, b, prec):
+        return _products(a, b, prec)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, prec = inputs
+        ctx.prec = prec
+        ctx.save_for_backward(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = _LowPrecisionMatmul.apply(g, b.mT, ctx.prec) if ctx.needs_input_grad[0] else None
+        gb = _LowPrecisionMatmul.apply(a.mT, g, ctx.prec) if ctx.needs_input_grad[1] else None
+        return ga, gb, None
+
+
+def _mm(a, b):
+    """a @ b at the active GEMM precision.  At 'highest', and for any
+    operand that is not f32, exactly `a @ b`.  Below it the operands are
+    matrices or equal-shaped batches of them; a vector `b` is taken as a
+    column."""
+    prec = _active_prec()
+    if prec is Precision.HIGHEST or a.dtype != torch.float32 or b.dtype != torch.float32:
+        return a @ b
+    if b.dim() == 1:
+        return _mm(a, b[:, None])[..., 0]
+    if a.dim() != b.dim() or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"_mm below 'highest' takes matrices or equal batches, got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _LowPrecisionMatmul.apply(a, b, prec)
+    # inside the reverse rules and the Functions' forwards: no graph to keep
+    return _products(a, b, prec)
+
 
 #: Backward defaults (reference `blocked_cholesky.py:359-365`): recursion
 #: base of the reverse rule, whether its solves go through explicit
@@ -71,6 +234,25 @@ _BWD_BASE = 256
 _BWD_VIA_INV = True
 _BWD_MODE = "iter"
 _BWD_BLOCK = 4096
+
+
+def set_bwd_params(base=None, via_inv=None, mode=None, block=None):
+    """Set the module defaults of the reverse rule's knobs (only the ones
+    given); returns the previous (base, via_inv, mode, block).  DEPRECATED:
+    prefer the scoped ``with stheno_tpu_torch.config.bwd_params(...): ...``."""
+    global _BWD_BASE, _BWD_VIA_INV, _BWD_MODE, _BWD_BLOCK
+    if mode is not None and mode not in _cfg.BWD_MODES:
+        raise ValueError(f"unknown backward mode {mode!r}; expected one of {_cfg.BWD_MODES}")
+    prev = (_BWD_BASE, _BWD_VIA_INV, _BWD_MODE, _BWD_BLOCK)
+    if base is not None:
+        _BWD_BASE = base
+    if via_inv is not None:
+        _BWD_VIA_INV = via_inv
+    if mode is not None:
+        _BWD_MODE = mode
+    if block is not None:
+        _BWD_BLOCK = block
+    return prev
 
 
 def _active_bwd_params():
@@ -108,12 +290,36 @@ def default_bases(dtype):
     return torch_chol_lower, torch_tri_inv_lower
 
 
+#: Module defaults of the base cases; None takes `default_bases` by dtype.
+_BASE_CHOL = None
+_BASE_TRI_INV = None
+
+
+def set_base_cholesky(fn):
+    """Set the module default base-case factoriser (None: by dtype); returns
+    the previous one.  DEPRECATED: prefer the scoped
+    ``with stheno_tpu_torch.config.scoped(base_cholesky=fn): ...``."""
+    global _BASE_CHOL
+    prev, _BASE_CHOL = _BASE_CHOL, fn
+    return prev
+
+
+def set_base_tri_inv(fn):
+    """Set the module default base-case triangular inverse (None: by dtype);
+    returns the previous one.  DEPRECATED: prefer the scoped
+    ``with stheno_tpu_torch.config.scoped(base_tri_inv=fn): ...``."""
+    global _BASE_TRI_INV
+    prev, _BASE_TRI_INV = _BASE_TRI_INV, fn
+    return prev
+
+
 def _base_chol(A):
-    return _cfg.active_override("base_cholesky", default_bases(A.dtype)[0])(A)
+    fn = _cfg.active_override("base_cholesky", _BASE_CHOL)
+    return (fn or default_bases(A.dtype)[0])(A)
 
 
 def _active_base_tri_inv(dtype):
-    return _cfg.active_override("base_tri_inv", default_bases(dtype)[1])
+    return _cfg.active_override("base_tri_inv", _BASE_TRI_INV) or default_bases(dtype)[1]
 
 
 def _base_tri_inv(L):
@@ -142,7 +348,7 @@ def _tri_inv_lower_batched(L, bs):
         C = invs[1::2]
         out = torch.zeros((m, 2 * s, 2 * s), dtype=L.dtype, device=L.device)
         out[:, :s, :s] = A
-        out[:, s:, :s] = -(C @ (Bs @ A))
+        out[:, s:, :s] = -_mm(C, _mm(Bs, A))
         out[:, s:, s:] = C
         invs = out
         s *= 2
@@ -168,7 +374,7 @@ def blocked_tri_inv_lower(L, base):
     Ci = blocked_tri_inv_lower(L[h:, h:], base=base)
     out = torch.zeros_like(L)
     out[:h, :h] = Ai
-    out[h:, :h] = -(Ci @ (L[h:, :h] @ Ai))
+    out[h:, :h] = -_mm(Ci, _mm(L[h:, :h], Ai))
     out[h:, h:] = Ci
     return out
 
@@ -178,7 +384,7 @@ def _left_update(A_panel, L_rows, L_panel, B):
     factored so far) summed B at a time, so no running f32 sum in a GEMM
     takes more than B products (see the module note)."""
     for j in range(0, L_rows.shape[-1], B):
-        A_panel = A_panel - L_rows[:, j : j + B] @ L_panel[:, j : j + B].T
+        A_panel = A_panel - _mm(L_rows[:, j : j + B], L_panel[:, j : j + B].T)
     return A_panel
 
 
@@ -213,7 +419,7 @@ def _blocked_cholesky_impl(A, block=1024, base=256, sym=False, collect_invs=Fals
         if n - c > B or collect_invs:
             L11inv = blocked_tri_inv_lower(L11, base=base)
         if n - c > B:
-            L[c + B :, c : c + B] = A_panel[B:] @ L11inv.T
+            L[c + B :, c : c + B] = _mm(A_panel[B:], L11inv.T)
         if collect_invs:
             invs.append(L11inv)
     if collect_invs:
@@ -231,7 +437,7 @@ def _phi(M):
 def _chol_bwd_base(L, L_bar):
     """Closed-form small-block reverse rule L⁻ᵀ Φ(Lᵀ tril(L̄)) L⁻¹ (raw,
     lower convention) via two TRSMs."""
-    P = _phi(L.T @ torch.tril(L_bar))
+    P = _phi(_mm(L.T, torch.tril(L_bar)))
     W = torch.linalg.solve_triangular(L.T, P, upper=True)  # L⁻ᵀ P
     return torch.linalg.solve_triangular(L, W, upper=False, left=False)  # W L⁻¹
 
@@ -260,8 +466,8 @@ def _solve_upper_T_reuse(L11, b, bs, invs, c_global):
         cc = kb * bs
         rhs = b[cc : cc + bs]
         if kb < nb - 1:
-            rhs = rhs - L11[cc + bs :, cc : cc + bs].T @ x[cc + bs :]
-        x[cc : cc + bs] = _inv_block(invs, c_global + cc, bs).T @ rhs
+            rhs = rhs - _mm(L11[cc + bs :, cc : cc + bs].T, x[cc + bs :])
+        x[cc : cc + bs] = _mm(_inv_block(invs, c_global + cc, bs).T, rhs)
     return x
 
 
@@ -285,9 +491,9 @@ def _chol_bwd_rec(L, L_bar, base, via_inv=True, invs=None, g0=0):
     Lb11, Lb21, Lb22 = L_bar[:h, :h], L_bar[h:, :h], L_bar[h:, h:]
 
     S22 = _chol_bwd_rec(L22, Lb22, base, via_inv, invs, g0 + h)
-    Lb21_eff = Lb21 - (S22 + S22.T) @ L21
+    Lb21_eff = Lb21 - _mm(S22 + S22.T, L21)
     K21_bar = _right_solve(L11, Lb21_eff, max(base, h // 4), via_inv, invs, g0)
-    Lb11_eff = Lb11 - K21_bar.T @ L21
+    Lb11_eff = Lb11 - _mm(K21_bar.T, L21)
     S11 = _chol_bwd_rec(L11, Lb11_eff, base, via_inv, invs, g0)
 
     out = torch.zeros_like(L)
@@ -328,10 +534,10 @@ def _chol_bwd_iter(L, L_bar, block, base, via_inv=True, invs=None):
         if e < n:
             L21 = L[e:, c:e]
             # reverse of the Schur update K22 ← K22 − L21 L21ᵀ
-            Lb21_eff = L_bar[e:, c:e] - 2.0 * (S[e:, e:] @ L21)
+            Lb21_eff = L_bar[e:, c:e] - 2.0 * _mm(S[e:, e:], L21)
             # reverse of L21 = K21 L11⁻ᵀ: K̄21 = L̄21 L11⁻¹ (raw convention)
             A21_bar = _right_solve(L11, Lb21_eff, max(base, B // 4), via_inv, invs, c)
-            Lb11 = Lb11 - A21_bar.T @ L21
+            Lb11 = Lb11 - _mm(A21_bar.T, L21)
             # the symmetric convention halves the off-diagonal raw gradient
             S[e:, c:e] = 0.5 * A21_bar
             S[c:e, e:] = 0.5 * A21_bar.T
@@ -369,19 +575,19 @@ def _chol_bwd_fused(L, L_bar, block, base, via_inv=True, invs=None):
             L11inv = invs[kb]
         else:
             L11inv = blocked_tri_inv_lower(L11, base=base)
-        G = L11.T @ torch.tril(L_bar[c:e, c:e])
+        G = _mm(L11.T, torch.tril(L_bar[c:e, c:e]))
         if e < n:
             L21 = L[e:, c:e]
-            Lb21_eff = L_bar[e:, c:e] - 2.0 * (S[e:, e:] @ L21)
-            G = G - Lb21_eff.T @ L21  # fusion 1
-        W = L11inv.T @ _phi(G)
+            Lb21_eff = L_bar[e:, c:e] - 2.0 * _mm(S[e:, e:], L21)
+            G = G - _mm(Lb21_eff.T, L21)  # fusion 1
+        W = _mm(L11inv.T, _phi(G))
         if e < n:
-            ZG = torch.cat([W, Lb21_eff]) @ L11inv  # fusion 2
+            ZG = _mm(torch.cat([W, Lb21_eff]), L11inv)  # fusion 2
             S11_raw, A21_bar = ZG[:B], ZG[B:]
             S[e:, c:e] = 0.5 * A21_bar
             S[c:e, e:] = 0.5 * A21_bar.T
         else:
-            S11_raw = W @ L11inv
+            S11_raw = _mm(W, L11inv)
         S[c:e, c:e] = 0.5 * (S11_raw + S11_raw.T)
     return S
 
@@ -389,20 +595,30 @@ def _chol_bwd_fused(L, L_bar, block, base, via_inv=True, invs=None):
 class _BlockedCholesky(torch.autograd.Function):
     """L = blocked_cholesky(tril(A)) (or of 0.5·(A + Aᵀ) with `sym`); the
     backward returns the symmetric gradient, which is also the exact
-    pullback through the `sym` fold.  The backward parameters and the base
-    inverse in scope at the forward call are the ones the backward uses."""
+    pullback through the `sym` fold.  The backward parameters, the base
+    inverse and the GEMM precisions in scope at the forward call are the
+    ones the backward uses: it runs at `bwd_precision`, or at the forward's
+    precision when that is None (reference `blocked_cholesky.py:656-689`)."""
 
     @staticmethod
     def forward(ctx, A, block, base, sym):
         bwd = _active_bwd_params()
         _, via_inv, mode, _ = bwd
+        prec = _active_prec()
+        bwd_prec = _active_bwd_prec()
+        bwd_prec = prec if bwd_prec is None else bwd_prec
         # the inverse stack (nb·B² floats) is kept only where the backward
-        # reads it: the via-inverse solves and the fused sweep
-        if ctx.needs_input_grad[0] and (via_inv or mode == "fused"):
+        # reads it: the via-inverse solves and the fused sweep.  Made at the
+        # forward's precision, an f32 stack is not reused by a backward at
+        # another one (which rebuilds what it needs at its own); any other
+        # dtype ignores the precisions
+        same = bwd_prec == prec or A.dtype != torch.float32
+        if ctx.needs_input_grad[0] and (via_inv or mode == "fused") and same:
             L, invs = _blocked_cholesky_impl(A, block, base, sym, collect_invs=True)
         else:
             L, invs = _blocked_cholesky_impl(A, block, base, sym), None
         ctx.bwd_params = bwd
+        ctx.bwd_prec = bwd_prec
         ctx.base_tri_inv = _active_base_tri_inv(A.dtype)
         ctx.save_for_backward(L, invs)
         return L
@@ -411,7 +627,7 @@ class _BlockedCholesky(torch.autograd.Function):
     def backward(ctx, L_bar):
         L, invs = ctx.saved_tensors
         base, via_inv, mode, block = ctx.bwd_params
-        with _cfg.scoped(base_tri_inv=ctx.base_tri_inv):
+        with _cfg.scoped(base_tri_inv=ctx.base_tri_inv, gemm_precision=ctx.bwd_prec):
             if mode == "fused":
                 out = _chol_bwd_fused(L, L_bar, block, base, via_inv, invs)
             elif mode == "iter":
@@ -437,11 +653,11 @@ def blocked_lauum(M, block=1024):
     n = M.shape[-1]
     B = min(block, n)
     if n % B != 0:
-        return M.T @ M
+        return _mm(M.T, M)
     S = torch.empty_like(M)
     for J in range(n // B):
         c = J * B
-        col = M[c:, : c + B].T @ M[c:, c : c + B]  # (c+B, B)
+        col = _mm(M[c:, : c + B].T, M[c:, c : c + B])  # (c+B, B)
         S[: c + B, c : c + B] = col
         S[c : c + B, :c] = col[:c].T
     return S
@@ -469,7 +685,7 @@ def _solve_lower_impl(L, b, block=1024):
             c = kb * B
             rhs = b[c : c + B]
             if kb > 0:
-                rhs = rhs - L[c : c + B, :c] @ x[:c]
+                rhs = rhs - _mm(L[c : c + B, :c], x[:c])
             x[c : c + B] = torch.linalg.solve_triangular(L[c : c + B, c : c + B], rhs, upper=False)
     return x[:, 0] if vec else x
 
@@ -492,10 +708,10 @@ def _solve_upper_T_impl(L, b, block=1024, via_inv=False):
             c = kb * B
             rhs = b[c : c + B]
             if c + B < n:
-                rhs = rhs - L[c + B :, c : c + B].T @ x[c + B :]
+                rhs = rhs - _mm(L[c + B :, c : c + B].T, x[c + B :])
             Lkk = L[c : c + B, c : c + B]
             if via_inv:
-                x[c : c + B] = blocked_tri_inv_lower(Lkk, base=256).T @ rhs
+                x[c : c + B] = _mm(blocked_tri_inv_lower(Lkk, base=256).T, rhs)
             else:
                 x[c : c + B] = torch.linalg.solve_triangular(Lkk.T, rhs, upper=True)
     return x[:, 0] if vec else x
@@ -503,39 +719,47 @@ def _solve_upper_T_impl(L, b, block=1024, via_inv=False):
 
 def _outer_tril_neg(u, v):
     """−tril(u vᵀ) for vectors or (N, K) matrices."""
-    M = torch.outer(u, v) if u.dim() == 1 else u @ v.T
+    M = torch.outer(u, v) if u.dim() == 1 else _mm(u, v.T)
     return M.tril_().neg_()
 
 
 class _SolveLower(torch.autograd.Function):
+    """x = L⁻¹ b; the adjoint runs at the forward's GEMM precision."""
+
     @staticmethod
     def forward(ctx, L, b, block):
         x = _solve_lower_impl(L, b, block)
         ctx.block = block
+        ctx.prec = _active_prec()
         ctx.save_for_backward(L, x)
         return x
 
     @staticmethod
     def backward(ctx, g):
         L, x = ctx.saved_tensors
-        bbar = _solve_upper_T_impl(L, g, ctx.block)
-        Lbar = _outer_tril_neg(bbar, x) if ctx.needs_input_grad[0] else None
+        with _cfg.scoped(gemm_precision=ctx.prec):
+            bbar = _solve_upper_T_impl(L, g, ctx.block)
+            Lbar = _outer_tril_neg(bbar, x) if ctx.needs_input_grad[0] else None
         return Lbar, bbar, None
 
 
 class _SolveUpperT(torch.autograd.Function):
+    """x = L⁻ᵀ b; the adjoint runs at the forward's GEMM precision."""
+
     @staticmethod
     def forward(ctx, L, b, block):
         x = _solve_upper_T_impl(L, b, block)
         ctx.block = block
+        ctx.prec = _active_prec()
         ctx.save_for_backward(L, x)
         return x
 
     @staticmethod
     def backward(ctx, g):
         L, x = ctx.saved_tensors
-        bbar = _solve_lower_impl(L, g, ctx.block)
-        Lbar = _outer_tril_neg(x, bbar) if ctx.needs_input_grad[0] else None
+        with _cfg.scoped(gemm_precision=ctx.prec):
+            bbar = _solve_lower_impl(L, g, ctx.block)
+            Lbar = _outer_tril_neg(x, bbar) if ctx.needs_input_grad[0] else None
         return Lbar, bbar, None
 
 

@@ -8,6 +8,9 @@ Everything else, a `torch.func.vmap` batch included, is symmetrised and
 goes to `torch.linalg.cholesky`, as the reference sends it to
 `lax.linalg.cholesky`.
 
+`record_chol_sizes()` collects the (N, dtype) of every factor
+`cholesky_psd` makes in its block (the samplers' `precision='auto'` rule).
+
 `mvn_logpdf_psd` can route a single-vector logpdf to the fused form
 (`_MvnLogpdfFused`), whose backward is the closed form ½(ααᵀ − K⁻¹) with
 K⁻¹ built by the blocked triangular inverse (kernel 3 on its base blocks)
@@ -18,6 +21,8 @@ and a blocked LAUUM.  As in the reference it is off by default
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 
@@ -34,6 +39,34 @@ _BLOCKED_MIN_N = 4096
 
 def symmetrize(K):
     return 0.5 * (K + K.mT)
+
+
+# ---------------------------------------------------------------------------
+# Factorisation-size recording (reference `ops/chol.py:27-56`): lets policy
+# code (the NUTS `precision='auto'` rule, `inference/hmc.py`) find what a
+# log-density factorises.  The reference traces it with `jax.eval_shape`;
+# here the log-density is evaluated once.  Thread-local, nestable, no cost
+# when inactive.
+
+_rec_tls = threading.local()
+
+
+@contextmanager
+def record_chol_sizes():
+    """Collect the (N, dtype) of every Cholesky factor `cholesky_psd` makes
+    in this block (an inner block collects its own, not the outer's)."""
+    prev = getattr(_rec_tls, "sizes", None)
+    _rec_tls.sizes = sizes = []
+    try:
+        yield sizes
+    finally:
+        _rec_tls.sizes = prev
+
+
+def _record_n(n, dtype):
+    sizes = getattr(_rec_tls, "sizes", None)
+    if sizes is not None:
+        sizes.append((int(n), dtype))
 
 
 def add_jitter(K, jitter):
@@ -65,6 +98,7 @@ def cholesky_psd(K, jitter=None):
     `cholesky(Symmetric(K))` one-triangle read); the torch.linalg route
     symmetrises first.  A matrix that is not positive definite gives NaN,
     as in the reference, rather than raising."""
+    _record_n(K.shape[-1], K.dtype)
     if _use_blocked(K):
         from stheno_tpu_torch.ops.blocked_cholesky import cholesky_blocked_padded
 
@@ -154,7 +188,10 @@ class _MvnLogpdfFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, K, diff):
+        from stheno_tpu_torch.ops.blocked_cholesky import _active_prec
+
         val, L, z = _fused_forward(K, diff)
+        ctx.prec = _active_prec()
         ctx.save_for_backward(L, z)
         return val
 
@@ -167,11 +204,14 @@ class _MvnLogpdfFused(torch.autograd.Function):
         )
 
         L, z = ctx.saved_tensors
-        alpha = blocked_solve_upper_T(L, z)
-        K_bar = None
-        if ctx.needs_input_grad[0]:
-            K_inv = blocked_lauum(blocked_tri_inv_lower(L, base=256))
-            K_bar = (0.5 * g) * (torch.outer(alpha, alpha) - K_inv)
+        # at the forward's GEMM precision, as the reference traces both in
+        # one scope
+        with _cfg.scoped(gemm_precision=ctx.prec):
+            alpha = blocked_solve_upper_T(L, z)
+            K_bar = None
+            if ctx.needs_input_grad[0]:
+                K_inv = blocked_lauum(blocked_tri_inv_lower(L, base=256))
+                K_bar = (0.5 * g) * (torch.outer(alpha, alpha) - K_inv)
         return K_bar, -g * alpha
 
 

@@ -25,9 +25,12 @@ rank runs the whole program, SPMD):
    exchange.  On every rank the gradient in a replicated hyperparameter is
    the single-process gradient, and the gradient in a sharded input is
    that rank's rows of it.  Each collective counts its calls.
-3. Every GEMM of the panel loop, the solves and the ring runs in full
-   FP32 (TF32 off), the counterpart of the reference's HIGHEST-precision
-   `_mm`.
+3. Every GEMM of the panel loop, the solves and the ring goes through
+   `ops.blocked_cholesky._mm`, as the reference's does: at the scoped
+   `config.gemm_precision`, full FP32 (TF32 off) at the port's default
+   'highest', 3xTF32 at 'high'.  Autograd differentiates the loops, and
+   `_mm` below 'highest' is a Function whose backward runs at the same
+   precision.
 
 The meshes run on `cuda` (NCCL) unless the caller asks for `cpu` (gloo);
 with no card a CUDA mesh raises, and a failed NCCL initialisation raises.

@@ -18,6 +18,7 @@ import math
 import torch
 
 from stheno_tpu_torch.finite_gp import _add_diag
+from stheno_tpu_torch.ops.blocked_cholesky import _mm
 from stheno_tpu_torch.parallel.cholesky import (
     distributed_cholesky_auto,
     distributed_logdet_chol,
@@ -40,7 +41,7 @@ def sharded_kernelmatrix(mesh, kernel, x, noise=None, axis_name="rows"):
 
 def sharded_matvec(mesh, K, v, axis_name="rows"):
     """This rank's rows of K v: K's slab against a whole v."""
-    return K @ pvary(v, Axis(mesh, axis_name))
+    return _mm(K, pvary(v, Axis(mesh, axis_name)))
 
 
 def big_gp_logpdf(mesh, kernel, x, y, noise, block_size=128, axis_name="rows"):

@@ -32,7 +32,8 @@ def run_nuts_sharded(seed, logdensity_fn, init_position, mesh, num_warmup=500, n
     `num_chains` defaults to one chain a rank and must be a multiple of the
     axis size.  Returns `(samples, info)` of this rank's chains (the leading
     chain axis is this rank's slice), equal to those chains of `run_nuts`
-    with the same seed.  The split-R̂ check runs on the gathered draws."""
+    with the same seed.  The split-R̂ check runs on the gathered draws.
+    Every other keyword (`precision`, `max_depth`, ...) goes to `run_nuts`."""
     ax = Axis(mesh, axis_name)
     num_chains = num_chains if num_chains is not None else ax.size
     if num_chains % ax.size != 0:

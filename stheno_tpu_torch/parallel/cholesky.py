@@ -20,8 +20,10 @@ steps), every trailing-update GEMM on the exact trailing column slice:
 Per-rank cost ≈ N³/(2P) multiply-adds for the contiguous slab;
 `distributed_cholesky_cyclic` deals B-row blocks round robin (global block
 g on rank g mod P) for ≈ N³/(3P), and `distributed_cholesky_auto` takes it
-whenever divisibility allows.  Every GEMM runs in full FP32 (TF32 off), the
-counterpart of the reference's `_mm` at HIGHEST.
+whenever divisibility allows.  Every GEMM goes through
+`ops.blocked_cholesky._mm`, as in the reference: at the scoped
+`config.gemm_precision`, full FP32 (TF32 off) at the port's default
+'highest'.
 
 The updates are out of place, so autograd differentiates the loop: the
 finished column panels are kept and concatenated at the end, and the
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from stheno_tpu_torch.ops import chol as _chol
+from stheno_tpu_torch.ops.blocked_cholesky import _mm
 from stheno_tpu_torch.parallel.collectives import (
     Axis,
     all_gather,
@@ -96,7 +99,7 @@ def _chol_panel_loop(K_loc, B, ax, n_total):
             break
         # -- 4: the whole panel column; 5: the trailing update ----------------
         trail = pvary(all_gather(new_panel, ax)[c + B:], ax)  # (N - c - B, B)
-        update = torch.where(below, new_panel, torch.zeros_like(new_panel)) @ trail.T
+        update = _mm(torch.where(below, new_panel, torch.zeros_like(new_panel)), trail.T)
         trailing = trailing[:, B:] - update
     # rows above each panel are zero in it and L_kk is lower triangular:
     # the concatenation is already the lower factor's slab
@@ -141,7 +144,7 @@ def _fwd_solve_loop(L_loc, b_loc, B, ax, n_total):
         blocks.append(a_blk)
         # the residual of the rows below the panel
         below = (local_rows >= c + B)[:, None]
-        upd = L_loc[:, c:c + B] @ pvary(a_blk, ax)
+        upd = _mm(L_loc[:, c:c + B], pvary(a_blk, ax))
         r_loc = r_loc - torch.where(below, upd, torch.zeros_like(upd))
     a = torch.cat(blocks)
     return a[:, 0] if vec else a
@@ -172,7 +175,7 @@ def _bwd_solve_loop(L_loc, b, B, ax, n_total):
         below = (local_rows >= c + B)[:, None]
         panel = L_loc[:, c:c + B]
         a_loc = pvary(a, ax)[row_base:row_base + n_loc]
-        contrib = psum(torch.where(below, panel, torch.zeros_like(panel)).T @ a_loc, ax)
+        contrib = psum(_mm(torch.where(below, panel, torch.zeros_like(panel)).T, a_loc), ax)
         a_blk = _chol.solve_lower(Lkk, b2[c:c + B] - contrib, trans=True)
         a = torch.cat([a[:c], a_blk, a[c + B:]])
     return a[:, 0] if vec else a
@@ -204,7 +207,7 @@ def distributed_logdet_chol(mesh, L, axis_name="rows"):
 def distributed_lower_matvec(mesh, L, v, axis_name="rows"):
     """y = L v for a row-sharded L and a whole v ((N,) or (N, K)); returns
     this rank's rows of y (the distributed `rand` building block)."""
-    return L @ pvary(v, Axis(mesh, axis_name))
+    return _mm(L, pvary(v, Axis(mesh, axis_name)))
 
 
 # --------------------------------------------------------------------------
@@ -322,7 +325,7 @@ def _chol_cyclic_loop(K_loc, B, ax, n_total):
         idx = (gb % p) * m_loc + (gb // p - t0) * B + gr % B
         trail = pvary(flat[torch.as_tensor(idx, device=dev)], ax)  # (N - c - B, B)
         # -- trailing update on the active rows only ------------------------------
-        trailing = trailing[off:, B:] - new_act @ trail.T
+        trailing = trailing[off:, B:] - _mm(new_act, trail.T)
     cols = torch.arange(B, device=dev)
     out = []
     for k, (s, piece) in enumerate(pieces):

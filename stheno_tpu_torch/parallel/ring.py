@@ -32,6 +32,7 @@ import math
 import torch
 
 from stheno_tpu_torch.finite_gp import _add_diag
+from stheno_tpu_torch.ops.blocked_cholesky import _mm
 from stheno_tpu_torch.parallel.collectives import (
     Axis,
     map_tensors,
@@ -61,7 +62,7 @@ def ring_matvec(mesh, kernel, x, v, noise=None, axis_name="rows"):
             # every rank starts with its own shard: the diagonal block is in
             # hand exactly at step 0
             K_blk = _add_diag(K_blk, pvary(noise, ax))
-        term = K_blk @ blk_v.to(K_blk.dtype)
+        term = _mm(K_blk, blk_v.to(K_blk.dtype))
         y = term if y is None else y + term
         if s < ax.size - 1:
             blk_x = ppermute(blk_x, ax)
@@ -155,7 +156,7 @@ def ring_posterior_mean_var(mesh, kernel, x, y, noise, xs, tol=1e-10, maxiter=10
         Ks_T = kernel.matrix(x, xs)  # this rank's (N/P, Np) rows of K(x, xs)
         V, it2 = ring_gp_solve(mesh, kernel, x, Ks_T, noise, tol=tol, maxiter=maxiter,
                                axis_name=axis_name)
-        m = psum(Ks_T.T @ alpha, ax)
+        m = psum(_mm(Ks_T.T, alpha), ax)
         q = psum(torch.sum(Ks_T * V, dim=0), ax)
         var = kernel.diag_same(xs) - q
     return m, var, (it1, it2)

@@ -20,10 +20,17 @@ is a group that runs several rows.
   null                  fixed host-pull overhead
   chol_lax              torch.linalg.cholesky (the library baseline)
   chol_cur, chol_b1024, chol_b4096, chol_f{block}_b{base}
-                        the blocked forward, full fp32 (the reference ran
+                        the blocked forward at the port's default GEMM
+                        precision, 'highest' (full fp32; the reference ran
                         its base ladder at HIGH, three-pass bf16)
+  chol_high             chol_cur under `gemm_precision('high')` (3xTF32)
   chol_grad, chol_grad_* (rec/iter/fused, bases, blocks, via_inv)
                         forward + backward of ΣL²; the gradient is I
+  chol_grad_bp_def, chol_grad_bp_high
+                        the iter backward at panels of 4096 under
+                        `bwd_precision('default')` (one TF32 pass: its
+                        distance from I is printed, not held) and
+                        `bwd_precision('high')`, the forward at 'highest'
   chol_impl_plain, chol_impl_sym, chol_psd_path
                         the forward without and with the `sym` fold, and
                         `cholesky_psd`
@@ -31,6 +38,7 @@ is a group that runs several rows.
                         library base factoriser and inverse; kernel 2 with
                         the library inverse; kernels 2 and 3 ("pal" keeps
                         the reference's meaning: the hand-written kernels)
+  chol_high_btri        chol_btri under `gemm_precision('high')`
   BASE_CHAIN            base_chain_lax, base_chain_pal: 64 serially
                         dependent 256-block factorisations
   TRSM                  trsm_lax, trsm_blocked and their _grad rows
@@ -52,10 +60,12 @@ is a group that runs several rows.
                         kernel 1's SE, D = 1 instance)
 
 Group selectors are the lower-case names: base_chain, trsm, gemm_peak,
-fwd_floor, dist_p1, ring_p1, markov_1m.  Left out: chol_high,
-chol_high_btri and chol_grad_bp_* (precision knobs the port does not
-have).  The distributed rows make a one-rank group (NCCL on the card, gloo
-on the CPU) when the process has none, and destroy it when the run ends.
+fwd_floor, dist_p1, ring_p1, markov_1m.  Rows that the reference runs at
+its library default precision (HIGH) run at the port's default
+('highest'), so no row changes what it measured before the precision
+rows came; those four rows scope their precision themselves.  The
+distributed rows make a one-rank group (NCCL on the card, gloo on the
+CPU) when the process has none, and destroy it when the run ends.
 
 The Cholesky probes build K with kernel 4 (one write, as XLA's fused
 broadcast is in the reference) and add the noise into its diagonal in
@@ -177,11 +187,12 @@ def grad_atol(bwd=None):
     return WIDE_FUSED_GRAD_ATOL if wide else GRAD_ATOL
 
 
-def grad_of_sum_sq(K, block=1024, base=256, bwd=None):
-    """(ΣL², ∂ΣL²/∂K) of L = blocked_cholesky(K) under `bwd_params(**bwd)`;
-    the gradient is I for a correct reverse rule."""
+def grad_of_sum_sq(K, block=1024, base=256, bwd=None, bwd_prec=None):
+    """(ΣL², ∂ΣL²/∂K) of L = blocked_cholesky(K) under `bwd_params(**bwd)`
+    and `bwd_precision(bwd_prec)`; the gradient is I for a correct reverse
+    rule."""
     K = K.detach().requires_grad_(True)
-    with _cfg.bwd_params(**(bwd or {})):
+    with _cfg.bwd_params(**(bwd or {})), _cfg.bwd_precision(bwd_prec):
         L = bc.blocked_cholesky(K, block, base)
     v = _flat_dot(L)
     (g,) = torch.autograd.grad(v, K)
@@ -272,15 +283,17 @@ class Probe:
 
         return self.timed(name, run, expect=self.trK, extra=extra)
 
-    def grad_row(self, name, block, bwd=None):
-        atol = grad_atol(bwd)
+    def grad_row(self, name, block, bwd=None, bwd_prec=None, hold=True):
+        """A forward + backward row; with `hold` False the gradient's
+        distance from I is printed and not held to a limit."""
+        atol = grad_atol(bwd) if hold else None
         seen = {"grad_atol": atol}
 
         def run(i):
-            v, g = grad_of_sum_sq(self.km(i), block, 256, bwd)
+            v, g = grad_of_sum_sq(self.km(i), block, 256, bwd, bwd_prec)
             if i == 0:
                 err = identity_distance(g)
-                seen.update(grad_max_abs_err_vs_I=err, ok=err <= atol)
+                seen.update(grad_max_abs_err_vs_I=err, ok=not hold or err <= atol)
             return v + _flat_dot(g) * 1e-12
 
         return self.timed(name, run, expect=self.trK, extra=seen)
@@ -294,6 +307,16 @@ class Probe:
 
     def v_chol_cur(self):
         self.chol_row("chol_cur", lambda K: bc._blocked_cholesky_impl(K, 2048, 256))
+
+    def v_chol_high(self):
+        self.chol_row("chol_high", lambda K: bc._blocked_cholesky_impl(K, 2048, 256),
+                      {"gemm_precision": _cfg.Precision.HIGH})
+
+    def v_chol_grad_bp(self, name, prec):
+        # the reference's `make_grad_probe(1024, 256, True, "iter", 4096,
+        # bwd_prec=...)`; 'default' is a reading (module note)
+        self.grad_row(name, 1024, dict(base=256, via_inv=True, mode="iter", block=4096),
+                      bwd_prec=prec, hold=prec != "default")
 
     def v_chol_blocks(self, block):
         self.chol_row(f"chol_b{block}", lambda K: bc._blocked_cholesky_impl(K, block, 256))
@@ -326,6 +349,9 @@ class Probe:
 
     def v_chol_btri(self):
         self._chol_2048("chol_btri", **LIBRARY_BASE)
+
+    def v_chol_high_btri(self):
+        self._chol_2048("chol_high_btri", **LIBRARY_BASE, gemm_precision=_cfg.Precision.HIGH)
 
     def v_chol_pal_base(self):
         self._chol_2048("chol_pal_base", base_cholesky=chol_block, base_tri_inv=bc.torch_tri_inv_lower)
@@ -676,14 +702,17 @@ class Probe:
     def variants(self):
         """(selector, thunk) in the reference's order."""
         out = [("null", self.v_null), ("chol_lax", self.v_chol_lax), ("chol_cur", self.v_chol_cur),
-               ("chol_grad", self.v_chol_grad)]
+               ("chol_high", self.v_chol_high), ("chol_grad", self.v_chol_grad)]
         out += [(g[0], lambda g=g: self.v_grad_ladder(*g)) for g in GRAD_LADDER]
+        out += [(name, lambda name=name, p=p: self.v_chol_grad_bp(name, p))
+                for name, p in (("chol_grad_bp_def", "default"), ("chol_grad_bp_high", "high"))]
         out += [("chol_impl_plain", self.v_chol_impl_plain), ("chol_impl_sym", self.v_chol_impl_sym),
                 ("chol_psd_path", self.v_chol_psd_path)]
         out += [(f"chol_b{b}", lambda b=b: self.v_chol_blocks(b)) for b in (1024, 4096)]
         out += [(f"chol_f{b}_b{base}", lambda b=b, base=base: self.v_chol_fwd_ladder(b, base))
                 for b, base in FWD_LADDER]
-        out += [("chol_btri", self.v_chol_btri), ("chol_pal_base", self.v_chol_pal_base),
+        out += [("chol_btri", self.v_chol_btri), ("chol_high_btri", self.v_chol_high_btri),
+                ("chol_pal_base", self.v_chol_pal_base),
                 ("chol_pal_all", self.v_chol_pal_all), ("base_chain", self.v_base_chain),
                 ("trsm", self.v_trsm), ("logpdf_fwd", self.v_logpdf_fwd),
                 ("bench_kgrad", self.v_bench_kgrad), ("bench_hgrad", self.v_bench_hgrad),

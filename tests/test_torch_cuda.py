@@ -110,7 +110,7 @@ def test_each_launch_counts_once_and_bad_input_raises(cuda_device):
     torch.cuda.synchronize()
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
         "kernelmatrix": 1, "kernelmatrix_batched": 0, "kernelmatrix_vjp": 0, "chol_block": 1,
-        "tri_inv_block": 1, "km_se_d1": 1}
+        "tri_inv_block": 1, "km_se_d1": 1, "tf32_split": 0}
     with pytest.raises(TypeError):
         tcb.chol_block(A.half())
     with pytest.raises(TypeError):  # the kernels are f32 only
@@ -280,7 +280,7 @@ def test_vmapped_logdensity_at_4096_takes_torch_linalg(cuda_device):
     torch.cuda.synchronize()
     counts = {k: c.total for k, c in kern.COUNTERS.items()}
     assert counts == {"kernelmatrix": 0, "kernelmatrix_batched": 1, "kernelmatrix_vjp": 1,
-                      "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0}, counts
+                      "chol_block": 0, "tri_inv_block": 0, "km_se_d1": 0, "tf32_split": 0}, counts
     assert list(kern.COUNTERS["kernelmatrix_batched"].by_shape) == [(4, 4096, 4096, 1, True)]
     for c in range(4):
         th = thetas[c].clone().requires_grad_(True)
@@ -605,3 +605,85 @@ def test_vjp_counter_counts_each_backward_and_no_cpu_call(cuda_device):
     finally:
         tkm.kernelmatrix_vjp = plain
     assert calls == ["cpu", "cpu"]
+
+
+# ---- the TF32 split and the GEMM precisions ---------------------------------------
+
+
+def _edge_f32(n, seed, device):
+    """Random bits (every exponent, NaNs and infinities among them), then
+    ties, subnormals, ±0, ±inf, NaN and values whose rounding overflows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bits = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, dtype=torch.int64).to(torch.int32)
+    edge = [0x00000000, 0x80000000, 0x00000001, 0x00001000, 0x00001FFF, 0x007FFFFF, 0x3F801000,
+            0xBF801000, 0x3F803000, 0x3F800FFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F7FF000, 0x7F7FEFFF,
+            0x7F800000, 0xFF800000, 0x7FC00000, 0xFFA00001]
+    edge = torch.tensor([b - (1 << 32) if b >= 1 << 31 else b for b in edge], dtype=torch.int32)
+    return torch.cat([bits, edge]).view(torch.float32).to(device)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def test_tf32_split_matches_plain_bit_for_bit(cuda_device):
+    from stheno_tpu_torch.cuda import tf32_split as ts
+
+    x = _edge_f32((1 << 20) + 2, 20, cuda_device)  # + 18 edge values: not a multiple of 4
+    kern.reset_counters()
+    for v in (x, x[:1 << 20].view(1024, 1024), x[:1 << 20].view(4, 512, 512)):
+        hi, lo = ts.tf32_split(v)
+        ph, pl = ts.tf32_split_plain(v)
+        assert hi.shape == v.shape and _same_bits(hi, ph) and _same_bits(lo, pl)
+    X = x[:1 << 20].view(1024, 1024)
+    for v in (X[:, 3:1000], X[:, 4:1000], X.T, X[:512, 8:].T):  # read in place, by their strides
+        hi, lo = ts.tf32_split(v)
+        ph, pl = ts.tf32_split_plain(v)
+        assert hi.shape == v.shape and _same_bits(hi, ph) and _same_bits(lo, pl)
+    torch.cuda.synchronize()
+    assert kern.COUNTERS["tf32_split"].total == 7
+    with pytest.raises(TypeError):
+        ts.tf32_split(x.double())
+
+
+def test_products_against_f64_on_the_card(cuda_device):
+    """At each precision against f64, normalised by max(|A||B|): 'high'
+    (3xTF32) within 4× fp32's own error, 'default' (one TF32 pass) within
+    1e-3, on normal data; the split runs only at 'high'."""
+    from stheno_tpu_torch import config
+    from stheno_tpu_torch.ops import blocked_cholesky as bc
+
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    for m, k, n in ((4096, 1024, 1024), (1024, 8192, 1024)):
+        A = torch.randn(m, k, generator=g, device=cuda_device)
+        B = torch.randn(k, n, generator=g, device=cuda_device)
+        ref = A.double() @ B.double()
+        scale = (A.double().abs() @ B.double().abs()).max().item()
+        err = {}
+        for p in ("highest", "high", "default"):
+            kern.reset_counters()
+            with config.gemm_precision(p):
+                err[p] = (bc._mm(A, B).double() - ref).abs().max().item() / scale
+            torch.cuda.synchronize()
+            assert (kern.COUNTERS["tf32_split"].total > 0) == (p == "high"), p
+        assert err["high"] <= 4 * err["highest"], err
+        assert err["default"] <= 1e-3 and err["default"] > 10 * err["highest"], err
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_tf32_switch_is_restored_after_a_scope(cuda_device):
+    from stheno_tpu_torch import config
+    from stheno_tpu_torch.ops import blocked_cholesky as bc
+
+    A = torch.randn(256, 256, device=cuda_device)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    for p in ("high", "default"):
+        with config.gemm_precision(p):
+            bc._mm(A, A)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        with pytest.raises(RuntimeError, match="on purpose"):
+            with config.gemm_precision(p), bc._tf32():
+                assert torch.backends.cuda.matmul.allow_tf32 is True
+                raise RuntimeError("on purpose")
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"

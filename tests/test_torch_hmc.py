@@ -285,26 +285,52 @@ def test_rhat_warning_fires_on_unmixed_chains():
 
 
 def test_precision_values_behave_as_specified():
+    """`precision` as the reference's: an explicit one (any case) is scoped
+    over the run as the GEMM precision, None scopes nothing, 'auto' pins
+    'highest' only for a large f32 factor (none here), and an unknown name
+    raises KeyError.  A run at 'highest' ('auto' at the default included)
+    holds the TF32 switch off even where the caller has it on, and restores
+    it after the run."""
+    from stheno_tpu_torch import config
+    from stheno_tpu_torch.ops import blocked_cholesky as bc
+
     seen = []
 
     def logp(q):
-        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        seen.append((bc._active_prec(), torch.backends.cuda.matmul.allow_tf32))
         return _std_normal(q)
 
-    before = torch.get_float32_matmul_precision()
     z = torch.zeros(2, dtype=torch.float64)
+    P = config.Precision
+    for precision, want in (("auto", P.HIGHEST), ("highest", P.HIGHEST), ("HIGH", P.HIGH),
+                            ("default", P.DEFAULT), (None, P.HIGHEST)):
+        seen.clear()
+        run_nuts(0, logp, z, num_warmup=3, num_samples=2, num_chains=2, precision=precision)
+        assert seen and all(p is want and not tf32 for p, tf32 in seen), precision
+    with config.gemm_precision("high"):
+        for precision in (None, "auto"):  # left alone: nothing factorised here
+            seen.clear()
+            nuts_warmup(0, logp, z, num_warmup=3, precision=precision)
+            assert seen and all(p is P.HIGH for p, _ in seen), precision
+    assert bc._active_prec() is P.HIGHEST
+    before = torch.backends.cuda.matmul.allow_tf32
     try:
-        torch.set_float32_matmul_precision("high")  # TF32 on, as a caller may have it
+        torch.backends.cuda.matmul.allow_tf32 = True  # TF32 on, as a caller may have it
         for precision in ("auto", "highest"):
             seen.clear()
             run_nuts(0, logp, z, num_warmup=3, num_samples=2, num_chains=2, precision=precision)
-            assert seen and not any(seen), precision  # pinned to FP32 for the run
+            assert seen and not any(tf32 for _, tf32 in seen), precision  # fp32 for the run
             assert torch.backends.cuda.matmul.allow_tf32  # and restored after it
-        seen.clear()
-        run_nuts(0, logp, z, num_warmup=3, num_samples=2, num_chains=2, precision=None)
-        assert seen and all(seen)  # left alone
-        for bad in ("high", "bf16_3x", "default"):
-            with pytest.raises(ValueError, match="ROADMAP"):
-                nuts_warmup(0, logp, z, num_warmup=3, precision=bad)
+        for precision in (None, "high"):  # left alone
+            seen.clear()
+            run_nuts(0, logp, z, num_warmup=3, num_samples=2, num_chains=2, precision=precision)
+            assert seen and all(tf32 for _, tf32 in seen), precision
+        with pytest.raises(ZeroDivisionError):  # restored after an exception in the run too
+            run_nuts(0, lambda q: 1 / 0, z, num_warmup=3, num_samples=2, num_chains=2,
+                     precision="highest")
+        assert torch.backends.cuda.matmul.allow_tf32
     finally:
-        torch.set_float32_matmul_precision(before)
+        torch.backends.cuda.matmul.allow_tf32 = before
+    for bad in ("bf16_3x", "tf32"):
+        with pytest.raises(KeyError):
+            nuts_warmup(0, logp, z, num_warmup=3, precision=bad)

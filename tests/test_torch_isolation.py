@@ -103,7 +103,8 @@ def test_forbidden_tells_the_jax_package_from_the_port():
                                   "examples/custom_affine_transformations",
                                   "examples/convolutional_gp", "examples/deep_kernel_learning",
                                   "examples/getting_started", "examples/non_gaussian_likelihoods",
-                                  "examples/markov_time_series"])
+                                  "examples/markov_time_series", "cuda/tf32_split", "config",
+                                  "ops/blocked_cholesky"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -218,7 +219,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         pp_ms = entry.pseudo_points_predict(pp_unflatten(pp_theta), pp, xp)
         with stt.config.logpdf_fused("on"):
             fused_val, _ = step(theta)
+        with stt.config.gemm_precision("high"):  # the split's plain version
+            high_val, _ = step(theta)
     assert np.isfinite(val.item()) and all(np.isfinite(g.item()) for g in grad.values())
+    assert np.isfinite(high_val.item())
     assert m.shape == v.shape == (64,)
     assert np.isfinite(ml_val.item()) and bool(torch.isfinite(ml_grad).all())
     assert ms.mean.shape == (192,) and ys.shape == (192, 2)
@@ -226,7 +230,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert pp_ms.mean.shape == (128,) and np.isfinite(fused_val.item())
     assert {k: c.total for k, c in kern.COUNTERS.items()} == {
         "kernelmatrix": 0, "kernelmatrix_batched": 0, "kernelmatrix_vjp": 0, "chol_block": 0,
-        "tri_inv_block": 0, "km_se_d1": 0}
+        "tri_inv_block": 0, "km_se_d1": 0, "tf32_split": 0}
 
 
 def test_derivative_pathwise_deconvolution_and_nkn_on_cpu_count_no_launch():

@@ -147,7 +147,7 @@ def test_gemm_peak_restores_the_tf32_switch(monkeypatch):
 
 def test_unknown_variants_and_no_card_raise(monkeypatch):
     with pytest.raises(ValueError, match="unknown variants"):
-        perf_probe.Probe(n=8, device="cpu").run(("chol_high",))
+        perf_probe.Probe(n=8, device="cpu").run(("chol_nonexistent",))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         perf_probe.main(["--n", "8", "null"])

@@ -450,6 +450,51 @@ def _multihost(inp):
 
 
 @job
+def precision(inp):
+    """The distributed factor (slab and cyclic) and the distributed solve,
+    f32, value and slab gradient at 'highest' and at 'high'; how many
+    products ran below 'highest'."""
+    from stheno_tpu_torch import config
+    from stheno_tpu_torch.ops import blocked_cholesky as bc
+    from stheno_tpu_torch.parallel import cholesky as DC
+    from stheno_tpu_torch.parallel.collectives import Axis, psum
+
+    mesh = _rows_mesh()
+    ax = Axis(mesh, "rows")
+    B = inp["B"]
+    f32 = lambda a: _t(a).float()  # noqa: E731
+    K_loc = _slab(inp["K"], mesh).float()
+    W_loc = _slab(inp["W"], mesh).float()
+    Bm = f32(inp["Bm"])
+    low = []
+    real = bc._products
+
+    def counted(a, b, prec):
+        low.append(prec)
+        return real(a, b, prec)
+
+    bc._products = counted
+    out = {}
+    try:
+        for prec in ("highest", "high"):
+            with config.gemm_precision(prec):
+                for name, fn in (("slab", DC.distributed_cholesky),
+                                 ("cyclic", DC.distributed_cholesky_cyclic)):
+                    val, g = _grad_wrt_slab(
+                        lambda K, fn=fn: psum(torch.sum(fn(mesh, K, block_size=B) * W_loc), ax), K_loc)
+                    out[f"f_{name}_{prec}"], out[f"g_{name}_{prec}"] = val, g
+                L = DC.distributed_cholesky(mesh, K_loc, block_size=B).detach()
+                val, g = _grad_wrt_slab(
+                    lambda Ls: torch.sum(DC.distributed_chol_solve(
+                        mesh, Ls, _slab(inp["Bm"], mesh).float(), block_size=B) * Bm), L)
+                out[f"f_solve_{prec}"], out[f"g_solve_{prec}"] = val, g
+    finally:
+        bc._products = real
+    out["low_precision_products"] = len(low)
+    return out
+
+
+@job
 def examples(inp):
     """The three entry examples at their fast sizes."""
     from stheno_tpu_torch import entry
