@@ -151,6 +151,18 @@ the CUDA toolkit.  In one run it
    keeps 'high'; (f) TF32 is off after the phase and after an exception
    raised on purpose inside a 'high' scope.
 
+15. runs the JAX package's last entry points through the modules a user
+   runs (`tools_path`): the chains × rows dry run
+   (`multichip.dryrun_multichip`) on a one-rank NCCL group, each of its
+   four stages (a NUTS transition over rows-sharded GPs, the sharded GPPP
+   verbs, the ring, the data-parallel SVGP step) launching kernel 1 and
+   calling collectives; `nuts_bench` at N = 2048, 16 chains, max_depth 8,
+   cut in depth, two `--batch-offset` runs pooled by `nuts_pool` equal
+   to one `--chain-batches 2` run bit for bit (one unsegmented, the others
+   segmented); `smc_bench` `analytic` (4096 particles, |log Z error| ≤
+   0.1) and `gp` (N = 1024, 64 particles, kernel 1 batched on every
+   evaluation) at their defaults; `layout_study --p 1 --check`.
+
 Every check that fails raises, so the script exits non-zero before its last
 line, which is `{"ok": true, "device": {...}}`.  There is no CPU fallback:
 without CUDA it exits non-zero and prints no result.
@@ -232,6 +244,16 @@ PAR_BIG_N = 32768
 PAR_XP = 1024
 PAR_RING_SEEDS = 4
 PAR_RING_POST_TOL = 1e-5
+#: phase 15: `nuts_bench` at the north star's widths (N, chains, max_depth),
+#: its warmup iterations, draws and segment cut to fit the phase's time:
+#: four chain batches run, and at 10 + 10 one took 20 s of warmup (the
+#: first iterations, at a unit mass matrix and an unadapted step, take
+#: 1-4 s each) and 17 s of draws; 8 draws are the fewest whose split
+#: halves ESS takes (4 draws each); the analytic SMC's limit on |log Z
+#: error| at 4096 particles
+TOOLS_NUTS = ("--n", "2048", "--chains", "16", "--max-depth", "8")
+TOOLS_NUTS_WARMUP, TOOLS_NUTS_SAMPLES, TOOLS_NUTS_SEGMENT = 6, 8, 4
+TOOLS_SMC_LOGZ_TOL = 0.1
 #: kernel 1's forward-mode rule against forward mode through the plain
 #: version (absolute; fp32 tangents of order 1)
 JVP_TOL = 1e-5
@@ -355,7 +377,9 @@ def event_ms(fn, reps, warmup=2):
 def device_ms(fn, kernel, reps, warmup=2):
     """Mean device duration in ms of the launches of `kernel` (a substring of
     the device kernel's name) over `reps` calls of `fn()`, from a
-    torch.profiler trace: the kernel's own time, without the host's gaps."""
+    torch.profiler trace: the kernel's own time, without the host's gaps.
+    When three traces hold no device event at all, the mean time of
+    `fn()` by CUDA events, said so on a line of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -364,16 +388,23 @@ def device_ms(fn, kernel, reps, warmup=2):
     torch.cuda.synchronize()
     # a trace on an H100 once came back without the kernel's device events:
     # up to three windows are traced, and the first that holds them is read
+    traced_any = False
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced_any = traced_any or bool(device)
+        spans = [e.time_range.end - e.time_range.start for e in device if kernel in e.name]
         if spans:
             return sum(spans) / len(spans) / 1e3
-    require(False, f"three profiler traces held no device kernel named like {kernel!r}")
+    # traces with device events but none of this kernel: it was not launched
+    require(not traced_any, f"three profiler traces held no device kernel named like {kernel!r}")
+    # traces with no device event at all (the profiler lost the card's
+    # activity, as it did once late in a run on an H100): CUDA events
+    emit({"device_ms_by_events": kernel, "reason": "three profiler traces held no device event"})
+    return event_ms(fn, reps, warmup=0)
 
 
 def host_ms(fn, reps, warmup=1):
@@ -2595,6 +2626,136 @@ def precision_path(torch, dev, card, step, theta, flagship_in):
             "launches_derivative_step_high": d_counts["tf32_split"]}
 
 
+def tools_path(torch, dev, card):
+    """Phase 15: the JAX package's last entry points, each through the
+    module a user runs.  (a) The chains × rows dry run
+    (`multichip.dryrun_multichip`) on a one-rank NCCL group: every value
+    finite, kernel 1 launched and collectives called on each stage.
+    (b) `nuts_bench` at N = 2048, 16 chains, max_depth 8, cut in depth:
+    an unsegmented run with `--batch-offset 0`, a segmented one with
+    `--batch-offset 1`, both pooled by `nuts_pool`, and a segmented
+    `--chain-batches 2` run, whose draws equal the pooled ones bit for bit
+    (its first batch, segmented, is the unsegmented run's twin).  (c)
+    `smc_bench`: `analytic` at its defaults (4096 particles, |log Z error|
+    ≤ TOOLS_SMC_LOGZ_TOL) and `gp` at its defaults (N = 1024, 64
+    particles, 2 seeds: log Z finite, every kernel-1 launch batched).
+    (d) `layout_study --p 1 --check`.  Returns each path's launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from stheno_tpu_torch import cuda as kern
+    from stheno_tpu_torch import layout_study, nuts_bench, nuts_pool, smc_bench
+    from stheno_tpu_torch.multichip import dryrun_multichip
+    from stheno_tpu_torch.parallel import collectives as coll
+    from stheno_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    counts, secs = {}, {}
+    work = Path(__file__).resolve().parent / "build" / "tools"
+    work.mkdir(parents=True, exist_ok=True)
+
+    def reset():
+        torch.cuda.synchronize()
+        kern.reset_counters()
+        coll.reset_counters()
+
+    def read(path, need):
+        torch.cuda.synchronize()
+        c, shapes = counts_now(kern)
+        counts[path] = c
+        emit({f"tools_{path}_launches": c, "launches_by_shape": shapes})
+        for name in need:
+            require(c[name] > 0, f"kernel {name} was not launched on the tools path {path}")
+        return c
+
+    # (a) the dry run on a one-rank group, as phase 12's
+    store = work / "dist_store"
+    store.unlink(missing_ok=True)
+    multihost.initialize(f"file://{store}", num_processes=1, process_id=0, device_type=dev.type)
+    t0 = time.perf_counter()
+    try:
+        require(dist.get_world_size() == 1 and dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                                                      else "gloo"),
+                f"phase 15's group: {dist.get_backend()} over {dist.get_world_size()} ranks")
+        reset()
+        dr = dryrun_multichip(1, device=dev.type)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    secs["dryrun"] = time.perf_counter() - t0
+    for stage in ("nuts", "gppp", "ring", "svgp"):
+        counts[f"dryrun_{stage}"] = dr["launches"][stage]
+        require(dr["launches"][stage]["kernelmatrix"] > 0,
+                f"kernel 1 was not launched on the dry run's {stage} stage")
+        require(sum(dr["collectives"][stage].values()) > 0,
+                f"no collective ran on the dry run's {stage} stage")
+    for k, v in dr.items():
+        if torch.is_tensor(v):
+            require(bool(torch.isfinite(v).all()), f"the dry run's {k} is not finite")
+        elif isinstance(v, float):
+            require(math.isfinite(v), f"the dry run's {k} is not finite")
+    emit({"tools_dryrun": {k: (v.tolist() if torch.is_tensor(v) else v) for k, v in dr.items()},
+          "seconds": secs["dryrun"]})
+
+    # (b) nuts_bench: offsets 0 (whole) and 1 (segmented), pooled, against
+    # one segmented run of two chain batches
+    base = [*TOOLS_NUTS, "--warmup", str(TOOLS_NUTS_WARMUP), "--samples", str(TOOLS_NUTS_SAMPLES),
+            "--device", dev.type]
+    seg = ["--segment", str(TOOLS_NUTS_SEGMENT), "--single-pass"]
+    runs = {}
+    for name, extra in (("b0", ["--batch-offset", "0"]), ("b1", seg + ["--batch-offset", "1"]),
+                        ("cb2", seg + ["--chain-batches", "2"])):
+        path = work / f"nuts_{name}.npz"
+        path.unlink(missing_ok=True)
+        reset()
+        t0 = time.perf_counter()
+        line = nuts_bench.main(base + extra + ["--save-draws", str(path)])
+        secs[f"nuts_{name}"] = time.perf_counter() - t0
+        read(f"nuts_bench_{name}", need=("kernelmatrix_batched", "kernelmatrix_vjp"))
+        runs[name] = (line, np.load(path), path)
+    pooled = nuts_pool.main([str(runs["b0"][2]), str(runs["b1"][2])])
+    draws = ("draws_v", "draws_l", "draws_noise", "div")
+    same = {k: bool(np.array_equal(runs["cb2"][1][k],
+                                   np.concatenate([runs["b0"][1][k], runs["b1"][1][k]])))
+            for k in draws}
+    emit({"tools_nuts_bench": {name: line for name, (line, _, _) in runs.items()}, "pooled": pooled,
+          "pooled_equals_chain_batches": same, "card": card})
+    require(all(same.values()), f"pooled draws differ from --chain-batches 2's: {same}")
+    require(all(pooled[k] == runs["cb2"][0][k] for k in ("rhat_max", "divergence_rate")),
+            "the pooled line's diagnostics differ from --chain-batches 2's")
+    for name, (line, z, _) in runs.items():
+        require(all(np.isfinite(z[k]).all() for k in draws[:3]), f"non-finite draws in run {name}")
+        require(math.isfinite(line["ess_per_s"]) and math.isfinite(line["rhat_max"]),
+                f"run {name}'s ESS or R-hat is not finite: {line}")
+
+    # (c) smc_bench at its defaults
+    reset()
+    t0 = time.perf_counter()
+    (analytic,) = smc_bench.main(["analytic", "--device", dev.type])
+    secs["smc_analytic"] = time.perf_counter() - t0
+    read("smc_analytic", need=())
+    require(analytic["log_z_err_abs_max"] <= TOOLS_SMC_LOGZ_TOL,
+            f"the analytic SMC's log Z error {analytic['log_z_err_abs_max']} > {TOOLS_SMC_LOGZ_TOL}")
+    reset()
+    t0 = time.perf_counter()
+    (gp,) = smc_bench.main(["gp", "--device", dev.type])
+    secs["smc_gp"] = time.perf_counter() - t0
+    c = read("smc_gp", need=("kernelmatrix_batched", "kernelmatrix_vjp"))
+    require(c["kernelmatrix"] == 0, f"{c['kernelmatrix']} unbatched kernel-1 launches on the SMC path")
+    require(math.isfinite(gp["log_z"]), f"the gp SMC's log Z is {gp['log_z']}")
+    emit({"tools_smc_bench": {"analytic": analytic, "gp": gp}, "card": card})
+
+    # (d) the layout study's check on one rank
+    t0 = time.perf_counter()
+    layout = layout_study.main(["--p", "1", "--check", "--device", dev.type])
+    secs["layout_check"] = time.perf_counter() - t0
+    require(layout["check"] == "ok", f"layout_study --check: {layout}")
+
+    phase_s = time.perf_counter() - t_phase
+    emit({"tools_path": {"phase_s": phase_s, "parts_s": secs, "card": card}})
+    return counts
+
+
 def launch_host_ms(torch, dev):
     """Host time of one kernel-1 launch at 4096 × 512, D = 9 (f32): `host_ms`
     of LAUNCH_REPS launches back to back ending in one synchronize, over
@@ -3435,6 +3596,14 @@ def main():
     # ---- 14. the GEMM-precision tier --------------------------------------------
     torch.cuda.empty_cache()
     kernels.append(precision_path(torch, dev, card, step, theta, (x, y, xp)))
+    numerics_policy(torch)
+
+    # ---- 15. the JAX package's last entry points ---------------------------------
+    torch.cuda.empty_cache()
+    tools_counts = tools_path(torch, dev, card)
+    for row in kernels:
+        for path, c in tools_counts.items():
+            row[f"launches_tools_{path}"] = c.get(row["name"], 0)
     numerics_policy(torch)
     print(card, flush=True)
     emit({"kernels": kernels})

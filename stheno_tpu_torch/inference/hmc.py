@@ -43,7 +43,7 @@ from stheno_tpu_torch.inference.diagnostics import potential_scale_reduction
 from stheno_tpu_torch.tree import ravel_pytree
 
 __all__ = ["nuts_kernel", "hmc_kernel", "run_nuts", "nuts_warmup", "warmup_result", "WarmupState",
-           "ChainState", "NUTSInfo", "window_adaptation_schedule", "BatchedLogDensity"]
+           "ChainState", "NUTSInfo", "window_adaptation_schedule", "BatchedLogDensity", "fold_in"]
 
 _DIVERGENCE_THRESHOLD = 1000.0
 
@@ -96,19 +96,57 @@ class GeneratorDraws:
         return self._rand()
 
 
+def fold_in(seed: int, index: int) -> int:
+    """A seed made from (seed, index) alone, as `jax.random.fold_in` makes a
+    key: the seed of run `index` of a bench, or of chain batch `index`."""
+    return int(np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint32)[0])
+
+
 class BatchedLogDensity:
     """`q (C, d) -> (logp (C,), grad (C, d))` of a log-density of one flat
     position (d,): `torch.func.vmap` of `torch.func.grad_and_value`.
-    `evals` counts the batched evaluations."""
+    `evals` counts the batched evaluations.
 
-    def __init__(self, logdensity_fn):
-        self._value_and_grad = torch.func.vmap(torch.func.grad_and_value(logdensity_fn))
+    `sequential=True` evaluates the chains one after another with ordinary
+    autograd instead: for a log-density that runs collectives (a rows-sharded
+    GP, `parallel`), which neither `vmap` nor `torch.func.grad` carries.
+    `agree`, given, maps each evaluation's `(logp, grad)` to values that are
+    bit-identical on every rank evaluating the same chains (`multichip`
+    broadcasts them from the rows axis's rank 0), so that every decision
+    the tree takes from them, and the collectives it issues, is the same on
+    all those ranks."""
+
+    def __init__(self, logdensity_fn, sequential=False, agree=None):
+        if sequential:
+            self._value_and_grad = _chain_by_chain(logdensity_fn)
+        else:
+            self._value_and_grad = torch.func.vmap(torch.func.grad_and_value(logdensity_fn))
+        self._agree = agree
         self.evals = 0
 
     def __call__(self, q):
         self.evals += 1
         grad, logp = self._value_and_grad(q)
+        if self._agree is not None:
+            logp, grad = self._agree(logp, grad)
         return logp, grad
+
+
+def _chain_by_chain(logdensity_fn):
+    """`q (C, d) -> (grad, logp)`, one chain at a time by `torch.autograd`."""
+
+    def value_and_grad(q):
+        grads, logps = [], []
+        for qi in q:
+            with torch.enable_grad():
+                qi = qi.detach().requires_grad_(True)
+                lp = logdensity_fn(qi)
+                (g,) = torch.autograd.grad(lp, qi)
+            grads.append(g)
+            logps.append(lp.detach())
+        return torch.stack(grads), torch.stack(logps)
+
+    return value_and_grad
 
 
 class IntegratorState(NamedTuple):
@@ -331,14 +369,16 @@ def _draws(gen, q, chains):
     return GeneratorDraws(gen, C, q.dtype, q.device, rows=(a, b))
 
 
-def nuts_kernel(logdensity_fn, max_depth: int = 10, chains=None):
+def nuts_kernel(logdensity_fn, max_depth: int = 10, chains=None, sequential=False, agree=None):
     """A NUTS transition over a batch of chains:
     `step(gen, q, logp, grad, eps, inv_mass) -> (q', logp', grad', NUTSInfo)`
     with q, grad, inv_mass (C, d), logp and eps (C,), and `gen` a
     `torch.Generator` on their device.  `logdensity_fn` takes one flat
-    position (d,); it is batched by `torch.func.vmap`.  `chains=(a, b, C)`
-    says q holds chains [a, b) of a run of C (`_draws`)."""
-    ld_and_grad = BatchedLogDensity(logdensity_fn)
+    position (d,); it is batched by `torch.func.vmap`, or evaluated chain
+    by chain with `sequential=True` (`BatchedLogDensity`, also for
+    `agree`).  `chains=(a, b, C)` says q holds chains [a, b) of a run of C
+    (`_draws`)."""
+    ld_and_grad = BatchedLogDensity(logdensity_fn, sequential, agree)
 
     def step(gen, q, logp, grad, eps, inv_mass):
         draws = _draws(gen, q, chains)

@@ -33,6 +33,18 @@ from stheno_tpu_torch.inference.hmc import (
 from stheno_tpu_torch.tree import ravel_pytree
 
 
+class SMCState(NamedTuple):
+    """The reference's named tuple of a tempering run's state, which it
+    exports and never uses; a run here is carried by `SMCCheckpoint`, the
+    same fields and the tempering history."""
+
+    particles: torch.Tensor  # (P, d)
+    log_like: torch.Tensor  # (P,)
+    beta: torch.Tensor
+    log_evidence: torch.Tensor
+    step: torch.Tensor
+
+
 class SMCCheckpoint(NamedTuple):
     """Resumable SMC run state (checkpointable with `inference.checkpoint`)."""
 

@@ -24,6 +24,8 @@ whole gradient; the cotangent of a varying tensor is that rank's piece.
   `batch_isend_irecv`; backward the inverse shift.
 - `all_to_all` (varying → varying): block d of the leading axis goes to
   rank d; backward the same exchange of the cotangent.
+- `broadcast` (→ invariant, bit for bit): the axis's rank `src`'s tensor
+  on every rank; not differentiable.
 
 `torch.distributed.nn.functional.all_reduce` is not used: its backward
 all-reduces the cotangent of the replicated loss, so every rank's gradient
@@ -37,7 +39,7 @@ or around what requires a gradient.
 Each collective counts its communication calls in `COUNTERS` (by shape),
 as the kernel wrappers count launches, where it communicates: `psum` and
 `all_gather` in the forward pass, `pvary` in the backward, `ppermute` and
-`all_to_all` in both.
+`all_to_all` in both, `broadcast` over more than one rank.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from stheno_tpu_torch.inputs import BlockData
 
 #: Each collective's communication calls, by name.
 COUNTERS = {name: LaunchCounter(name)
-            for name in ("psum", "all_gather", "pvary", "ppermute", "all_to_all")}
+            for name in ("psum", "all_gather", "pvary", "ppermute", "all_to_all", "broadcast")}
 
 
 def reset_counters() -> None:
@@ -221,6 +223,17 @@ def all_to_all(x, ax: Axis):
     if x.shape[0] != ax.size:
         raise ValueError(f"all_to_all: leading axis {x.shape[0]} != axis size {ax.size}")
     return _AllToAll.apply(x, ax.group)
+
+
+def broadcast(x, ax: Axis, src=0):
+    """The tensor of the axis's rank `src` on every rank of the axis, bit
+    for bit (a copy; `x` is left as it is)."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if ax.size == 1:
+        return out
+    COUNTERS["broadcast"].add(tuple(out.shape))
+    dist.broadcast(out, src=dist.get_global_rank(ax.group, src), group=ax.group)
+    return out
 
 
 def map_tensors(obj, fn, memo=None):

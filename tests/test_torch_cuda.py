@@ -687,3 +687,39 @@ def test_tf32_switch_is_restored_after_a_scope(cuda_device):
                 raise RuntimeError("on purpose")
         assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_dry_run_on_a_one_rank_nccl_grid(cuda_device):
+    """`multichip.dryrun_multichip` on a one-rank NCCL group: every value
+    finite, kernel 1 launched and collectives called on each stage."""
+    import torch.distributed as dist
+
+    from stheno_tpu_torch.multichip import dryrun_multichip
+
+    assert not dist.is_initialized()
+    out = dryrun_multichip()
+    assert not dist.is_initialized()  # the group it made is gone
+    assert out["mesh"] == {"chains": 1, "rows": 1} and out["chains"] == 2
+    for k in ("logps", "grads", "q", "logp", "accept_prob", "m1", "v1", "svgp_dq_mu", "svgp_dq_sqrt"):
+        assert bool(torch.isfinite(out[k]).all()), k
+    for k in ("logp_first", "gppp_lp", "gppp_dlp_dv", "ring_lp", "ring_dlp_dl", "neg_elbo"):
+        assert np.isfinite(out[k]), k
+    for stage in ("nuts", "gppp", "ring", "svgp"):
+        assert out["launches"][stage]["kernelmatrix"] > 0, stage
+        assert sum(out["collectives"][stage].values()) > 0, stage
+    assert out["launches"]["nuts"]["kernelmatrix_vjp"] > 0
+
+
+def test_nuts_bench_segmented_equals_unsegmented_on_the_card(cuda_device, tmp_path):
+    from stheno_tpu_torch import nuts_bench
+
+    small = ["--n", "512", "--chains", "4", "--warmup", "12", "--samples", "8", "--max-depth", "5"]
+    draws = {}
+    for name, extra in (("whole", []), ("seg", ["--segment", "3", "--single-pass"])):
+        kern.reset_counters()
+        line = nuts_bench.main(small + extra + ["--save-draws", str(tmp_path / f"{name}.npz")])
+        assert kern.COUNTERS["kernelmatrix_batched"].total > 0
+        assert "," in line["device"]  # the card's name, its power limit
+        draws[name] = np.load(tmp_path / f"{name}.npz")
+    for k in ("draws_v", "draws_l", "draws_noise", "div"):
+        np.testing.assert_array_equal(draws["seg"][k], draws["whole"][k])

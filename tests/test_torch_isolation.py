@@ -104,7 +104,8 @@ def test_forbidden_tells_the_jax_package_from_the_port():
                                   "examples/convolutional_gp", "examples/deep_kernel_learning",
                                   "examples/getting_started", "examples/non_gaussian_likelihoods",
                                   "examples/markov_time_series", "cuda/tf32_split", "config",
-                                  "ops/blocked_cholesky"])
+                                  "ops/blocked_cholesky", "multichip", "nuts_bench", "nuts_pool",
+                                  "smc_bench", "layout_study"])
 def test_the_new_modules_are_walked(name):
     assert REPO / "stheno_tpu_torch" / f"{name}.py" in PORT_SOURCES
     assert "stheno_tpu_torch." + name.replace("/", ".") in MODULES
@@ -179,6 +180,45 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
     # a mesh that cannot have its card makes no gloo group in its place
+    assert not dist.is_initialized()
+
+
+TOOLS = ("nuts_bench", "nuts_pool", "smc_bench", "layout_study")
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_the_tools_print_their_help_without_a_card(name, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"stheno_tpu_torch.{name}")
+    with pytest.raises(SystemExit) as e:
+        mod.main(["--help"])
+    assert e.value.code == 0 and "usage" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_the_tools_raise_without_a_card_by_default(name, monkeypatch):
+    """With no arguments each tool runs on the card, so without one it
+    raises (the pool, which runs on the host, asks for its files) and
+    makes no process group."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"stheno_tpu_torch.{name}")
+    if name == "nuts_pool":
+        with pytest.raises(SystemExit, match="usage"):
+            mod.main([])
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+    assert not dist.is_initialized()
+
+
+def test_the_dry_run_raises_without_a_card(monkeypatch):
+    from stheno_tpu_torch.multichip import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(1, device="cuda")
     assert not dist.is_initialized()
 
 

@@ -38,6 +38,12 @@ COLLECTIVE_TIMEOUT = 120
 
 def spawn(job, p, inputs, tmp_path, timeout=JOIN_TIMEOUT):
     """Run `job` in p gloo ranks; the ranks' results in rank order."""
+    return join(start(job, p, inputs, tmp_path, timeout))
+
+
+def start(job, p, inputs, tmp_path, timeout=JOIN_TIMEOUT):
+    """Start `job` in p gloo ranks and return at once: `join` waits for
+    them, so the caller can work meanwhile."""
     d = Path(tmp_path) / f"{job}-p{p}"
     d.mkdir(parents=True, exist_ok=True)
     with open(d / "inputs.pkl", "wb") as f:
@@ -50,7 +56,13 @@ def spawn(job, p, inputs, tmp_path, timeout=JOIN_TIMEOUT):
         procs.append((subprocess.Popen([sys.executable, __file__, job, str(r), str(p), str(d)],
                                        cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT),
                       log))
-    deadline = time.monotonic() + timeout
+    return job, p, d, procs, timeout, time.monotonic()
+
+
+def join(started):
+    """The results of the ranks `start` began, in rank order."""
+    job, p, d, procs, timeout, t_start = started
+    deadline = t_start + timeout
     try:
         for proc, _ in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -502,6 +514,24 @@ def examples(inp):
     return {"big_n_sharded": entry.big_n_sharded_example(fast=True, device="cpu"),
             "matrix_free": entry.matrix_free_example(fast=True, device="cpu"),
             "svgp_data_parallel": entry.svgp_data_parallel_example(device="cpu", **inp["svgp"])}
+
+
+@job
+def multichip(inp):
+    """`multichip.dryrun_multichip` on the job's grid, and the transition
+    over every chain in this rank's rows group (the bit-for-bit reference
+    of the grid's)."""
+    import torch.distributed as dist
+
+    from stheno_tpu_torch import multichip as mc
+    from stheno_tpu_torch.parallel import grid_mesh
+
+    out = mc.dryrun_multichip(device="cpu", dtype=torch.float64)
+    mesh = grid_mesh(*mc.grid_shape(dist.get_world_size()), device_type="cpu")
+    x, y = mc.dryrun_data(torch.float64, "cpu")
+    _, _, q, logp, info = mc.nuts_stage(mesh, x, y, out["chains"])
+    out.update(ref_q=q, ref_logp=logp, ref_accept_prob=info.accept_prob)
+    return out
 
 
 def _main(argv):
