@@ -1,0 +1,10 @@
+"""`subst_ms.train`: device milliseconds a fit step in the program's
+`solve` and `solve.reverse` spans (the triangular substitutions and their
+reverse rules), by the per-unit rule of `harness/program_spans.py`."""
+
+from harness.program_spans import device_ms
+from harness.readings import FIT
+
+
+def read(run):
+    return device_ms(run, FIT, ("solve", "solve.reverse"))

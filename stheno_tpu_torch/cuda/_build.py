@@ -20,6 +20,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+# the launch counters live with the tracer, which credits each launch to the
+# innermost open span; kept importable from here
+from stheno_tpu_torch.utils.logging import LaunchCounter  # noqa: F401
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 FLAGS = (
@@ -98,20 +102,3 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         lib.stheno_error_string.argtypes = [ctypes.c_int]
         msg = lib.stheno_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
-
-
-class LaunchCounter:
-    """Counts the launches of one kernel, in total and by launch shape."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.total = 0
-        self.by_shape: dict[tuple, int] = {}
-
-    def add(self, shape: tuple) -> None:
-        self.total += 1
-        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
-
-    def reset(self) -> None:
-        self.total = 0
-        self.by_shape = {}

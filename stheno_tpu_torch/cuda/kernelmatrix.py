@@ -20,7 +20,8 @@ are differentiated again.  On a CPU tensor the reverse rule is
 caller folds the lengthscale into `x` and `y` (`x / ℓ`), so ∂ℓ flows
 through autograd, as at `kernelmatrix.py:95-97` of the reference.  VJP
 launches are counted in `VJP_LAUNCHES` by (C, N, M, D, same), C = 1 for
-one matrix.
+one matrix.  The reverse rule runs in a `cov.reverse` span
+(`utils/logging.py`), a child of the span the forward ran in.
 
 Its forward-mode rule (`jvp`, `kernelmatrix_jvp`) is plain PyTorch in row
 chunks: K̇ = σ²·g'(sq)·2Σ_k (x_ik − y_jk)(ẋ_ik − ẏ_jk) + σ̇²·g(sq), with
@@ -64,6 +65,7 @@ from torch.autograd.function import once_differentiable
 
 from stheno_tpu_torch.cuda import _build
 from stheno_tpu_torch.func_transforms import lowered_jvp, under_transform
+from stheno_tpu_torch.utils import logging as _trace
 
 KINDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
@@ -508,6 +510,7 @@ class _KernelMatrix(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, y, variance, kind = inputs
         ctx.kind = kind
+        ctx.span = _trace.current()
         # absent tangents arrive as None, not as materialised zeros
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, y, variance)
@@ -523,13 +526,14 @@ class _KernelMatrix(torch.autograd.Function):
     @staticmethod
     def backward(ctx, K_bar):
         x, y, variance = ctx.saved_tensors
-        if under_transform():
-            # torch.func: the VJP's own Function carries the batched rule
-            gx, gy, gv = _KernelMatrixVJP.apply(x, y, variance, K_bar, ctx.kind)
-        elif x.is_cuda:
-            gx, gy, gv = _KernelMatrixVJPCard.apply(x, y, variance, K_bar, ctx.kind)
-        else:
-            gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
+        with _trace.span("cov.reverse", ctx.span):
+            if under_transform():
+                # torch.func: the VJP's own Function carries the batched rule
+                gx, gy, gv = _KernelMatrixVJP.apply(x, y, variance, K_bar, ctx.kind)
+            elif x.is_cuda:
+                gx, gy, gv = _KernelMatrixVJPCard.apply(x, y, variance, K_bar, ctx.kind)
+            else:
+                gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
         need_x, need_y, need_v, _ = ctx.needs_input_grad
         return (gx if need_x else None, gy if need_y else None,
                 gv if need_v else None, None)
@@ -560,15 +564,17 @@ class _KernelMatrixBatched(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, y, variance, kind = inputs
         ctx.kind = kind
+        ctx.span = _trace.current()
         ctx.save_for_backward(x, y, variance)
 
     @staticmethod
     def backward(ctx, K_bar):
         x, y, variance = ctx.saved_tensors
-        if x.is_cuda:
-            gx, gy, gv = _KernelMatrixVJPCard.apply(x, y, variance, K_bar, ctx.kind)
-        else:
-            gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
+        with _trace.span("cov.reverse", ctx.span):
+            if x.is_cuda:
+                gx, gy, gv = _KernelMatrixVJPCard.apply(x, y, variance, K_bar, ctx.kind)
+            else:
+                gx, gy, gv = kernelmatrix_vjp(x, y, ctx.kind, variance, K_bar)
         need_x, need_y, need_v, _ = ctx.needs_input_grad
         return (gx if need_x else None, gy if need_y else None,
                 gv if need_v else None, None)

@@ -129,6 +129,7 @@ from stheno_tpu_torch.models.workloads import (
     pseudo_points_model,
 )
 from stheno_tpu_torch.sampling import pathwise_conditioned_samples
+from stheno_tpu_torch.utils import logging as _trace
 
 THETA = dict(v1=1.5, l1=1.0, l2=0.5, noise=0.1)
 
@@ -173,8 +174,9 @@ def flagship(n=16384, dtype=torch.float32, device="cuda"):
 
 def predict(theta, x, y, xp):
     """Posterior marginals (mean, var) of f1 at xp given f3 = y at x (the
-    variance includes the default jitter of a noiseless FiniteGP)."""
-    with torch.no_grad():
+    variance includes the default jitter of a noiseless FiniteGP).  One
+    `entry.predict` span, so the verbs of a request share its trace id."""
+    with torch.no_grad(), _trace.span("entry.predict"):
         f = build(theta)
         post = posterior(f(GPPPInput("f3", x), theta["noise"]), y)
         return post(GPPPInput("f1", xp)).mean_and_var()

@@ -13,6 +13,12 @@ pseudo-points may tag any process of a GPPP, latent ones included
 
 Observations `y` and a dense noise matrix given on the host (numpy, or a
 tensor on another device) are moved to the covariance's device and dtype.
+
+Spans (`utils/logging.py`): each public verb is one (`logpdf`, `elbo`,
+`posterior`, `rand`, and the posteriors' `posterior.mean`, `posterior.var`,
+`posterior.cov`, `cov2` and `var2` under the same names), and each
+covariance block asked of the process graph is a `cov` span, credited with
+the entries it assembles (`elems`).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from stheno_tpu_torch.func_transforms import under_transform
 from stheno_tpu_torch.inputs import input_dtype, input_length
 from stheno_tpu_torch.ops import chol as _chol
 from stheno_tpu_torch.tree import frozen_dataclass
+from stheno_tpu_torch.utils import logging as _trace
 
 
 class _AddDiagInPlace(torch.autograd.Function):
@@ -129,10 +136,10 @@ class FiniteGP:
         return self.f.mean(self.x)
 
     def cov(self):
-        return self.noise.add_to(self.f.cov(self.x))
+        return self.noise.add_to(_block(self.f, "cov", self.x))
 
     def var(self):
-        v = self.f.var(self.x)
+        v = _block(self.f, "var", self.x)
         return v + self.noise.diag(len(self)).to(v.device)
 
     def mean_and_cov(self):
@@ -192,6 +199,24 @@ def marginals(fx: FiniteGP) -> Marginals:
     return Marginals(m, v)
 
 
+def _graph_block(fn, *args):
+    """`fn(*args)`, a covariance block (or its diagonal) of the process
+    graph, under a `cov` span credited with its entries."""
+    with _trace.span("cov"):
+        K = fn(*args)
+        if _trace.active:
+            _trace.credit("elems", K.numel())
+    return K
+
+
+def _block(f, statistic, *xs):
+    """`f.<statistic>(*xs)`: a `_graph_block`, except for a posterior
+    process, whose statistics are verbs with spans of their own."""
+    if isinstance(f, (PosteriorGP, ApproxPosteriorGP)):
+        return getattr(f, statistic)(*xs)
+    return _graph_block(getattr(f, statistic), *xs)
+
+
 def _like(t, ref):
     """`t` (a tensor, numpy array or number) on `ref`'s device and dtype (a
     number is made in that dtype, not rounded through float32 first)."""
@@ -205,8 +230,9 @@ def logpdf(fx, y):
     gives its ELBO (per column of a 2-D `y`)."""
     if isinstance(fx, SparseFiniteGP):
         return _sparse_logpdf(fx, y)
-    K = fx.cov()
-    return _chol.mvn_logpdf_psd(_like(y, K), fx.mean(), K)
+    with _trace.span("logpdf"):
+        K = fx.cov()
+        return _chol.mvn_logpdf_psd(_like(y, K), fx.mean(), K)
 
 
 def rand(generator, fx, num_samples=None):
@@ -220,10 +246,11 @@ def rand(generator, fx, num_samples=None):
     observation FiniteGP."""
     if isinstance(fx, SparseFiniteGP):
         fx = fx.fobs
-    L = _chol.cholesky_psd(fx.cov())
-    S = 1 if num_samples is None else num_samples
-    y = _chol.mvn_sample_chol(generator, fx.mean(), L, (S,)).mT
-    return y[:, 0] if num_samples is None else y
+    with _trace.span("rand"):
+        L = _chol.cholesky_psd(fx.cov())
+        S = 1 if num_samples is None else num_samples
+        y = _chol.mvn_sample_chol(generator, fx.mean(), L, (S,)).mT
+        return y[:, 0] if num_samples is None else y
 
 
 @frozen_dataclass(eq=False)
@@ -239,24 +266,29 @@ class PosteriorGP:
 
     def _a(self, x):
         """L⁻¹ K(x_obs, x), the shared O(N_obs² · N) solve."""
-        return _chol.solve_lower(self.L, self.prior.cov2(self.x_obs, x))
+        return _chol.solve_lower(self.L, _block(self.prior, "cov2", self.x_obs, x))
 
     def mean(self, x):
-        return self.prior.mean(x) + self.prior.cov2(x, self.x_obs) @ self.alpha
+        with _trace.span("posterior.mean"):
+            return self.prior.mean(x) + _block(self.prior, "cov2", x, self.x_obs) @ self.alpha
 
     def cov(self, x):
-        A = self._a(x)
-        return self.prior.cov(x) - A.T @ A
+        with _trace.span("posterior.cov"):
+            A = self._a(x)
+            return _block(self.prior, "cov", x) - A.T @ A
 
     def cov2(self, x, x2):
-        return self.prior.cov2(x, x2) - self._a(x).T @ self._a(x2)
+        with _trace.span("posterior.cov"):
+            return _block(self.prior, "cov2", x, x2) - self._a(x).T @ self._a(x2)
 
     def var(self, x):
-        A = self._a(x)
-        return self.prior.var(x) - torch.sum(A * A, dim=0)
+        with _trace.span("posterior.var"):
+            A = self._a(x)
+            return _block(self.prior, "var", x) - torch.sum(A * A, dim=0)
 
     def var2(self, x, x2):
-        return self.prior.var2(x, x2) - torch.sum(self._a(x) * self._a(x2), dim=0)
+        with _trace.span("posterior.var"):
+            return _block(self.prior, "var2", x, x2) - torch.sum(self._a(x) * self._a(x2), dim=0)
 
     def mean_and_cov(self, x):
         return self.mean(x), self.cov(x)
@@ -276,9 +308,10 @@ def posterior(fx, y, y2=None):
         return posterior_vfe(fx, y, y2)
     if isinstance(fx, SparseFiniteGP):
         return posterior_vfe(VFE(fx.finducing), fx.fobs, y)
-    L = _chol.cholesky_psd(fx.cov())
-    alpha = _chol.chol_solve(L, _like(y, L) - fx.mean())
-    return PosteriorGP(fx.f, fx.x, L, alpha)
+    with _trace.span("posterior"):
+        L = _chol.cholesky_psd(fx.cov())
+        alpha = _chol.chol_solve(L, _like(y, L) - fx.mean())
+        return PosteriorGP(fx.f, fx.x, L, alpha)
 
 
 # ---------------------------------------------------------------------------
@@ -302,9 +335,9 @@ def _cross_cov_any(f, x_f, g, x_g):
     from stheno_tpu_torch.graph import AbstractProcess, cross_cov
 
     if f is g:
-        return f.cov2(x_f, x_g)
+        return _block(f, "cov2", x_f, x_g)
     if isinstance(f, AbstractProcess) and isinstance(g, AbstractProcess):
-        return cross_cov(f, g, x_f, x_g)
+        return _graph_block(cross_cov, f, g, x_f, x_g)
     raise TypeError("the two processes must come from the same programme (same GPPP or same GPC)")
 
 
@@ -330,21 +363,22 @@ def elbo(approx: VFE, fx: FiniteGP, y):
         log N(y; m, Qff + Σ) − ½ Σᵢ (Kffᵢᵢ − Qffᵢᵢ)/sᵢ,
 
     in O(N M²) through the Woodbury and determinant identities."""
-    Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
-    n = len(fx)
-    b = (_like(y, A) - fx.mean()) / sqrt_s
-    c = _chol.solve_lower(LB, A @ b)
-    log_marginal = -0.5 * (
-        n * math.log(2.0 * math.pi)
-        + 2.0 * torch.sum(torch.log(sqrt_s))
-        + _chol.chol_logdet(LB)
-        + b @ b
-        - c @ c
-    )
-    # −½ Σᵢ (kffᵢᵢ − qffᵢᵢ)/sᵢ, with qffᵢᵢ/sᵢ = Σₘ A²[m, i]
-    kff_diag = fx.f.var(fx.x)
-    trace_term = -0.5 * (torch.sum(kff_diag / sqrt_s**2) - torch.sum(A * A))
-    return log_marginal + trace_term
+    with _trace.span("elbo"):
+        Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
+        n = len(fx)
+        b = (_like(y, A) - fx.mean()) / sqrt_s
+        c = _chol.solve_lower(LB, A @ b)
+        log_marginal = -0.5 * (
+            n * math.log(2.0 * math.pi)
+            + 2.0 * torch.sum(torch.log(sqrt_s))
+            + _chol.chol_logdet(LB)
+            + b @ b
+            - c @ c
+        )
+        # −½ Σᵢ (kffᵢᵢ − qffᵢᵢ)/sᵢ, with qffᵢᵢ/sᵢ = Σₘ A²[m, i]
+        kff_diag = _block(fx.f, "var", fx.x)
+        trace_term = -0.5 * (torch.sum(kff_diag / sqrt_s**2) - torch.sum(A * A))
+        return log_marginal + trace_term
 
 
 def elbo_fx(fx: FiniteGP, y, u: FiniteGP):
@@ -368,30 +402,36 @@ class ApproxPosteriorGP:
     c: torch.Tensor
 
     def _v(self, x):
-        return _chol.solve_lower(self.Luu, self.prior.cov2(self.z, x))
+        return _chol.solve_lower(self.Luu, _block(self.prior, "cov2", self.z, x))
 
     def mean(self, x):
-        return self.prior.mean(x) + self._v(x).T @ self.c
+        with _trace.span("posterior.mean"):
+            return self.prior.mean(x) + self._v(x).T @ self.c
 
     def cov(self, x):
-        V = self._v(x)
-        W = _chol.solve_lower(self.LB, V)
-        return self.prior.cov(x) - V.T @ V + W.T @ W
+        with _trace.span("posterior.cov"):
+            V = self._v(x)
+            W = _chol.solve_lower(self.LB, V)
+            return _block(self.prior, "cov", x) - V.T @ V + W.T @ W
 
     def cov2(self, x, x2):
-        V, V2 = self._v(x), self._v(x2)
-        W, W2 = _chol.solve_lower(self.LB, V), _chol.solve_lower(self.LB, V2)
-        return self.prior.cov2(x, x2) - V.T @ V2 + W.T @ W2
+        with _trace.span("posterior.cov"):
+            V, V2 = self._v(x), self._v(x2)
+            W, W2 = _chol.solve_lower(self.LB, V), _chol.solve_lower(self.LB, V2)
+            return _block(self.prior, "cov2", x, x2) - V.T @ V2 + W.T @ W2
 
     def var(self, x):
-        V = self._v(x)
-        W = _chol.solve_lower(self.LB, V)
-        return self.prior.var(x) - torch.sum(V * V, dim=0) + torch.sum(W * W, dim=0)
+        with _trace.span("posterior.var"):
+            V = self._v(x)
+            W = _chol.solve_lower(self.LB, V)
+            return _block(self.prior, "var", x) - torch.sum(V * V, dim=0) + torch.sum(W * W, dim=0)
 
     def var2(self, x, x2):
-        V, V2 = self._v(x), self._v(x2)
-        W, W2 = _chol.solve_lower(self.LB, V), _chol.solve_lower(self.LB, V2)
-        return self.prior.var2(x, x2) - torch.sum(V * V2, dim=0) + torch.sum(W * W2, dim=0)
+        with _trace.span("posterior.var"):
+            V, V2 = self._v(x), self._v(x2)
+            W, W2 = _chol.solve_lower(self.LB, V), _chol.solve_lower(self.LB, V2)
+            return (_block(self.prior, "var2", x, x2) - torch.sum(V * V2, dim=0)
+                    + torch.sum(W * W2, dim=0))
 
     def mean_and_cov(self, x):
         return self.mean(x), self.cov(x)
@@ -406,11 +446,12 @@ class ApproxPosteriorGP:
 def posterior_vfe(approx: VFE, fx: FiniteGP, y):
     """The approximate posterior under the Titsias approximation: with
     b = (y − m)/√s, it stores c = LB⁻ᵀ LB⁻¹ (A b), so mean(x*) = m* + V*ᵀ c."""
-    Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
-    b = (_like(y, A) - fx.mean()) / sqrt_s
-    c = _chol.solve_lower(LB, A @ b)
-    c = _chol.solve_lower(LB, c, trans=True)
-    return ApproxPosteriorGP(approx.fz.f, approx.fz.x, Luu, LB, c)
+    with _trace.span("posterior"):
+        Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
+        b = (_like(y, A) - fx.mean()) / sqrt_s
+        c = _chol.solve_lower(LB, A @ b)
+        c = _chol.solve_lower(LB, c, trans=True)
+        return ApproxPosteriorGP(approx.fz.f, approx.fz.x, Luu, LB, c)
 
 
 @frozen_dataclass(eq=False)

@@ -61,11 +61,18 @@ The factor depends on tril(A) only: panels read lower column slabs and the
 base kernel ignores block-upper content (reference `blocked_cholesky.py:73-78`).
 The reference's other TRSMs (the backward base case, the solves' diagonal
 blocks) are `torch.linalg.solve_triangular`.
+
+Tracing (`utils/logging.py`): while a span is open, `_mm` credits it with
+2·m·n·k (`gemm_flops`, the logical work at any precision), and the factor
+and the two reverse sweeps with each panel (`panels`).  The reverse rules of
+the factor and of the solves are `chol.reverse` and `solve.reverse` spans,
+children of the span the forward ran in.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager, nullcontext
+from itertools import zip_longest
 
 import torch
 
@@ -73,6 +80,7 @@ from stheno_tpu_torch import config as _cfg
 from stheno_tpu_torch.config import Precision
 from stheno_tpu_torch.cuda.chol_block import chol_block, tri_inv_block
 from stheno_tpu_torch.cuda.tf32_split import tf32_round_plain, tf32_split
+from stheno_tpu_torch.utils import logging as _trace
 
 #: Default GEMM precision.  A kept divergence: the reference's is HIGH
 #: (bf16_3x), tuned against the TPU's MXU; the port stays at full fp32
@@ -208,16 +216,33 @@ class _LowPrecisionMatmul(torch.autograd.Function):
         return ga, gb, None
 
 
+def _gemm_flops(a, b):
+    """2·m·n·k of a @ b, times the broadcast batch (from the shapes alone:
+    `torch.broadcast_shapes` makes tensors, which costs the host tens of µs)."""
+    sa, sb = a.shape, b.shape
+    flops = 2 * sa[-1] * (sb[-1] if len(sb) > 1 else 1) * (sa[-2] if len(sa) > 1 else 1)
+    for x, y in zip_longest(reversed(sa[:-2]), reversed(sb[:-2]), fillvalue=1):
+        flops *= max(x, y)
+    return flops
+
+
 def _mm(a, b):
     """a @ b at the active GEMM precision.  At 'highest', and for any
     operand that is not f32, exactly `a @ b`.  Below it the operands are
     matrices or equal-shaped batches of them; a vector `b` is taken as a
     column."""
+    if _trace.active:
+        _trace.credit("gemm_flops", _gemm_flops(a, b))
     prec = _active_prec()
     if prec is Precision.HIGHEST or a.dtype != torch.float32 or b.dtype != torch.float32:
         return a @ b
     if b.dim() == 1:
-        return _mm(a, b[:, None])[..., 0]
+        return _mm_below(a, b[:, None], prec)[..., 0]
+    return _mm_below(a, b, prec)
+
+
+def _mm_below(a, b, prec):
+    """a @ b of f32 matrices (or equal batches) below 'highest'."""
     if a.dim() != b.dim() or a.shape[:-2] != b.shape[:-2]:
         raise ValueError(f"_mm below 'highest' takes matrices or equal batches, got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -408,6 +433,8 @@ def _blocked_cholesky_impl(A, block=1024, base=256, sym=False, collect_invs=Fals
     L = torch.zeros_like(A)
     invs = []
     for kb in range(nb):
+        if _trace.active:
+            _trace.credit("panels", 1)
         c = kb * B
         A_panel = A[c:, c : c + B]
         if sym:
@@ -527,6 +554,8 @@ def _chol_bwd_iter(L, L_bar, block, base, via_inv=True, invs=None):
         return 0.5 * (K_raw + K_raw.T)
     S = torch.empty_like(L)
     for kb in reversed(range(n // B)):
+        if _trace.active:
+            _trace.credit("panels", 1)
         c = kb * B
         e = c + B
         L11 = L[c:e, c:e]
@@ -568,6 +597,8 @@ def _chol_bwd_fused(L, L_bar, block, base, via_inv=True, invs=None):
         return 0.5 * (K_raw + K_raw.T)
     S = torch.empty_like(L)
     for kb in reversed(range(n // B)):
+        if _trace.active:
+            _trace.credit("panels", 1)
         c = kb * B
         e = c + B
         L11 = L[c:e, c:e]
@@ -620,6 +651,7 @@ class _BlockedCholesky(torch.autograd.Function):
         ctx.bwd_params = bwd
         ctx.bwd_prec = bwd_prec
         ctx.base_tri_inv = _active_base_tri_inv(A.dtype)
+        ctx.span = _trace.current()
         ctx.save_for_backward(L, invs)
         return L
 
@@ -627,7 +659,8 @@ class _BlockedCholesky(torch.autograd.Function):
     def backward(ctx, L_bar):
         L, invs = ctx.saved_tensors
         base, via_inv, mode, block = ctx.bwd_params
-        with _cfg.scoped(base_tri_inv=ctx.base_tri_inv, gemm_precision=ctx.bwd_prec):
+        with (_trace.span("chol.reverse", ctx.span),
+              _cfg.scoped(base_tri_inv=ctx.base_tri_inv, gemm_precision=ctx.bwd_prec)):
             if mode == "fused":
                 out = _chol_bwd_fused(L, L_bar, block, base, via_inv, invs)
             elif mode == "iter":
@@ -731,13 +764,14 @@ class _SolveLower(torch.autograd.Function):
         x = _solve_lower_impl(L, b, block)
         ctx.block = block
         ctx.prec = _active_prec()
+        ctx.span = _trace.current()
         ctx.save_for_backward(L, x)
         return x
 
     @staticmethod
     def backward(ctx, g):
         L, x = ctx.saved_tensors
-        with _cfg.scoped(gemm_precision=ctx.prec):
+        with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
             bbar = _solve_upper_T_impl(L, g, ctx.block)
             Lbar = _outer_tril_neg(bbar, x) if ctx.needs_input_grad[0] else None
         return Lbar, bbar, None
@@ -751,13 +785,14 @@ class _SolveUpperT(torch.autograd.Function):
         x = _solve_upper_T_impl(L, b, block)
         ctx.block = block
         ctx.prec = _active_prec()
+        ctx.span = _trace.current()
         ctx.save_for_backward(L, x)
         return x
 
     @staticmethod
     def backward(ctx, g):
         L, x = ctx.saved_tensors
-        with _cfg.scoped(gemm_precision=ctx.prec):
+        with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
             bbar = _solve_lower_impl(L, g, ctx.block)
             Lbar = _outer_tril_neg(x, bbar) if ctx.needs_input_grad[0] else None
         return Lbar, bbar, None

@@ -16,6 +16,10 @@ goes to `torch.linalg.cholesky`, as the reference sends it to
 K⁻¹ built by the blocked triangular inverse (kernel 3 on its base blocks)
 and a blocked LAUUM.  As in the reference it is off by default
 (`LOGPDF_FUSED`); `config.logpdf_fused("auto" | "on")` scopes it in.
+
+Spans (`utils/logging.py`): `cholesky_psd` is a `chol.factor` span and
+`solve_lower`/`solve_upper` a `solve` span, on either route; the fused
+logpdf's reverse rule is a `chol.reverse` span.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from stheno_tpu_torch import config as _cfg
 from stheno_tpu_torch.func_transforms import is_vmapped
+from stheno_tpu_torch.utils import logging as _trace
 
 #: Cholesky backend: 'auto' routes large single matrices on a CUDA device to
 #: the blocked factorisation, everything else to torch.linalg.
@@ -99,42 +104,45 @@ def cholesky_psd(K, jitter=None):
     symmetrises first.  A matrix that is not positive definite gives NaN,
     as in the reference, rather than raising."""
     _record_n(K.shape[-1], K.dtype)
-    if _use_blocked(K):
-        from stheno_tpu_torch.ops.blocked_cholesky import cholesky_blocked_padded
+    with _trace.span("chol.factor"):
+        if _use_blocked(K):
+            from stheno_tpu_torch.ops.blocked_cholesky import cholesky_blocked_padded
 
+            if jitter is not None:
+                K = add_jitter(K, jitter)
+            return cholesky_blocked_padded(K, block=1024, base=256)
+        K = symmetrize(K)
         if jitter is not None:
             K = add_jitter(K, jitter)
-        return cholesky_blocked_padded(K, block=1024, base=256)
-    K = symmetrize(K)
-    if jitter is not None:
-        K = add_jitter(K, jitter)
-    L, info = torch.linalg.cholesky_ex(K)
-    return L.masked_fill((info != 0)[..., None, None], float("nan"))
+        L, info = torch.linalg.cholesky_ex(K)
+        return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
 def solve_lower(L, b, trans=False):
     """Solve L x = b (or Lᵀ x = b when trans) with L lower triangular.
     Large single matrices take the blocked substitution."""
-    if _use_blocked(L):
-        from stheno_tpu_torch.ops.blocked_cholesky import (
-            blocked_solve_lower,
-            blocked_solve_upper_T,
-        )
+    with _trace.span("solve"):
+        if _use_blocked(L):
+            from stheno_tpu_torch.ops.blocked_cholesky import (
+                blocked_solve_lower,
+                blocked_solve_upper_T,
+            )
 
-        if trans:
-            return blocked_solve_upper_T(L, b, block=1024)
-        return blocked_solve_lower(L, b, block=1024)
-    vec = b.dim() == L.dim() - 1
-    b2 = b[..., None] if vec else b
-    out = torch.linalg.solve_triangular(L.mT if trans else L, b2, upper=trans)
-    return out[..., 0] if vec else out
+            if trans:
+                return blocked_solve_upper_T(L, b, block=1024)
+            return blocked_solve_lower(L, b, block=1024)
+        vec = b.dim() == L.dim() - 1
+        b2 = b[..., None] if vec else b
+        out = torch.linalg.solve_triangular(L.mT if trans else L, b2, upper=trans)
+        return out[..., 0] if vec else out
 
 
 def solve_upper(U, b, trans=False):
-    vec = b.dim() == U.dim() - 1
-    b2 = b[..., None] if vec else b
-    out = torch.linalg.solve_triangular(U.mT if trans else U, b2, upper=not trans)
-    return out[..., 0] if vec else out
+    with _trace.span("solve"):
+        vec = b.dim() == U.dim() - 1
+        b2 = b[..., None] if vec else b
+        out = torch.linalg.solve_triangular(U.mT if trans else U, b2, upper=not trans)
+        return out[..., 0] if vec else out
 
 
 def chol_solve(L, b):
@@ -192,6 +200,7 @@ class _MvnLogpdfFused(torch.autograd.Function):
 
         val, L, z = _fused_forward(K, diff)
         ctx.prec = _active_prec()
+        ctx.span = _trace.current()
         ctx.save_for_backward(L, z)
         return val
 
@@ -206,7 +215,7 @@ class _MvnLogpdfFused(torch.autograd.Function):
         L, z = ctx.saved_tensors
         # at the forward's GEMM precision, as the reference traces both in
         # one scope
-        with _cfg.scoped(gemm_precision=ctx.prec):
+        with _trace.span("chol.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
             alpha = blocked_solve_upper_T(L, z)
             K_bar = None
             if ctx.needs_input_grad[0]:

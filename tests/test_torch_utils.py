@@ -1,7 +1,8 @@
 """The port's `utils.cost` and `utils.logging` against the JAX package's:
 the FLOPs of a GEMM and of a logpdf's products (the reference reads XLA's
 cost model, the port counts while it runs), the printed summary line,
-`log_scalars`' cadence and sink, and `Trace`'s written profile."""
+`log_scalars`' cadence and sink, and `Trace`'s written profile with the
+program's spans."""
 
 import io
 import json
@@ -47,8 +48,31 @@ def test_log_scalars_every_n_steps():
 
 
 def test_trace_writes_a_profile(tmp_path):
+    """The profile, with the program's spans opened inside the region
+    written into the same file on its own clock (`baseTimeNanoseconds`)."""
+    from stheno_tpu_torch import entry
+    from stheno_tpu_torch.utils import logging as tracer
+
+    x, y, _, theta = entry.flagship_data(256, 8, torch.float64, "cpu")
+    tracer.clear()
     with Trace("region", dir=str(tmp_path)) as tr:
         torch.ones(32, 32) @ torch.ones(32, 32)
+        entry.nlml(theta, x, y)
     assert tr.profile is not None
-    events = json.loads((tmp_path / "region.json").read_text())["traceEvents"]
+    doc = json.loads((tmp_path / "region.json").read_text())
+    events = doc["traceEvents"]
     assert any(e.get("name") == "region" for e in events)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    program = [e for e in events if e.get("cat") == "program"]
+    assert sorted(e["name"] for e in program) == ["chol.factor", "cov", "logpdf", "solve"]
+    by_id = {r["id"]: r for r in tr.spans}
+    for e in program:
+        r = by_id[e["args"]["id"]]
+        assert e["pid"] == tracer.HOST_PID and e["tid"] == r["thread"]
+        assert e["ts"] == (r["host_ns"][0] - base) / 1e3
+        assert e["dur"] == (r["host_ns"][1] - r["host_ns"][0]) / 1e3
+    # the region's own annotation encloses the spans on the file's clock
+    (region,) = [e for e in events if e.get("name") == "region" and e.get("ph") == "X"]
+    root = next(e for e in program if e["name"] == "logpdf")
+    assert region["ts"] <= root["ts"] and root["ts"] + root["dur"] <= region["ts"] + region["dur"]
+    tracer.clear()
