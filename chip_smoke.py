@@ -569,8 +569,8 @@ def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
         either: f32's error in the value is read off them."""
         with torch.no_grad():
             fx, u = E.pseudo_points_observations(unflatten(theta.to(d[0].dtype)), d[0])
-            _, A, _, sqrt_s = _vfe_factors(VFE(u), fx)
-            return (fx.f.var(fx.x) / sqrt_s**2).sum().item(), (A * A).sum().item()
+            _, _, sqrt_s, _, _, t = _vfe_factors(VFE(u), fx, d[1])
+            return (fx.f.var(fx.x) / sqrt_s**2).sum().item(), t.item()
 
     sums32, sums64 = trace_sums(theta0, data), trace_sums(theta0.to(f64), data64)
     torch.cuda.empty_cache()
@@ -812,12 +812,12 @@ def pseudo_point_path(torch, dev, card, flagship_step, flagship_theta):
     with stt.config.logpdf_fused("on"):
         timings["fused_step_ms"] = host_ms(lambda: flagship_step(flagship_theta), reps=3)
     timings["step_ms_after"] = host_ms(lambda: flagship_step(flagship_theta), reps=3)
-    # the −ELBO step's flops, 10·M²N in all: the forward's solve of N
+    # the −ELBO step's flops, 5·M²N in all: the forward's solve of N
     # right-hand sides against the M² Luu (M²N) and the Gram AAᵀ (2M²N); the
-    # backward's two GEMMs of the Gram's adjoint (4M²N), the solve's adjoint
-    # (M²N) and its outer product L̄ = −tril(b̄ xᵀ) (2M²N)
+    # backward's one GEMM K̃̄ = P A of the substitution and its products
+    # (2M²N, `ops/chol.py:_VfeProducts`); its M × M work is left out
     m_tot = 2 * PP_M
-    step_flops = 10 * m_tot**2 * PP_N
+    step_flops = 5 * m_tot**2 * PP_N
     step_bound, step_by = bound(0, step_flops)
     emit({"pseudo_points": {"n": PP_N, "inducing": m_tot, "dtype": "float32", **timings,
                             "step_bound_ms": step_bound, "step_bound_by": step_by,

@@ -341,20 +341,24 @@ def _cross_cov_any(f, x_f, g, x_g):
     raise TypeError("the two processes must come from the same programme (same GPPP or same GPC)")
 
 
-def _vfe_factors(approx: VFE, fx: FiniteGP):
-    """(Luu, A, LB, √s): Luu = chol(Kuu + fz's noise), A = Luu⁻¹ Kuf / √s,
-    B = I + A Aᵀ = LB LBᵀ."""
+def _vfe_factors(approx: VFE, fx: FiniteGP, y):
+    """(Luu, LB, √s, b, a, t) of the Titsias bound: Luu = chol(Kuu + fz's
+    noise), A = Luu⁻¹ K̃ with K̃ = Kuf / √s, B = I + A Aᵀ = LB LBᵀ,
+    b = (y − m)/√s, a = A b and t = Σ A².  A Aᵀ, a and t come from
+    `ops.chol.vfe_products` (`_VfeProducts`, one reverse rule for the
+    substitution and its products; under a `torch.func` transform the
+    composite chain), and A itself is not returned."""
     fz, u = approx.fz, approx.fz.f
     if not isinstance(fx.noise, DiagNoise):
         raise TypeError("elbo/VFE requires diagonal observation noise")
     Luu = _chol.cholesky_psd(fz.cov())
     Kuf = _cross_cov_any(u, fz.x, fx.f, fx.x)
     sqrt_s = torch.sqrt(_like(fx.noise.diag(len(fx)), Kuf))
-    A = _chol.solve_lower(Luu, Kuf) / sqrt_s[None, :]
-    m = A.shape[0]
-    B = torch.eye(m, dtype=A.dtype, device=A.device) + A @ A.T
+    b = (_like(y, Kuf) - fx.mean()) / sqrt_s
+    AAt, a, t = _chol.vfe_products(Luu, Kuf / sqrt_s[None, :], b)
+    B = torch.eye(AAt.shape[0], dtype=AAt.dtype, device=AAt.device) + AAt
     LB = _chol.cholesky_psd(B)
-    return Luu, A, LB, sqrt_s
+    return Luu, LB, sqrt_s, b, a, t
 
 
 def elbo(approx: VFE, fx: FiniteGP, y):
@@ -364,10 +368,9 @@ def elbo(approx: VFE, fx: FiniteGP, y):
 
     in O(N M²) through the Woodbury and determinant identities."""
     with _trace.span("elbo"):
-        Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
+        _, LB, sqrt_s, b, a, t = _vfe_factors(approx, fx, y)
         n = len(fx)
-        b = (_like(y, A) - fx.mean()) / sqrt_s
-        c = _chol.solve_lower(LB, A @ b)
+        c = _chol.solve_lower(LB, a)
         log_marginal = -0.5 * (
             n * math.log(2.0 * math.pi)
             + 2.0 * torch.sum(torch.log(sqrt_s))
@@ -375,9 +378,9 @@ def elbo(approx: VFE, fx: FiniteGP, y):
             + b @ b
             - c @ c
         )
-        # −½ Σᵢ (kffᵢᵢ − qffᵢᵢ)/sᵢ, with qffᵢᵢ/sᵢ = Σₘ A²[m, i]
+        # −½ Σᵢ (kffᵢᵢ − qffᵢᵢ)/sᵢ, with qffᵢᵢ/sᵢ = Σₘ A²[m, i] = t
         kff_diag = _block(fx.f, "var", fx.x)
-        trace_term = -0.5 * (torch.sum(kff_diag / sqrt_s**2) - torch.sum(A * A))
+        trace_term = -0.5 * (torch.sum(kff_diag / sqrt_s**2) - t)
         return log_marginal + trace_term
 
 
@@ -447,9 +450,8 @@ def posterior_vfe(approx: VFE, fx: FiniteGP, y):
     """The approximate posterior under the Titsias approximation: with
     b = (y − m)/√s, it stores c = LB⁻ᵀ LB⁻¹ (A b), so mean(x*) = m* + V*ᵀ c."""
     with _trace.span("posterior"):
-        Luu, A, LB, sqrt_s = _vfe_factors(approx, fx)
-        b = (_like(y, A) - fx.mean()) / sqrt_s
-        c = _chol.solve_lower(LB, A @ b)
+        Luu, LB, _, _, a, _ = _vfe_factors(approx, fx, y)
+        c = _chol.solve_lower(LB, a)
         c = _chol.solve_lower(LB, c, trans=True)
         return ApproxPosteriorGP(approx.fz.f, approx.fz.x, Luu, LB, c)
 

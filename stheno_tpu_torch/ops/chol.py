@@ -17,9 +17,14 @@ K⁻¹ built by the blocked triangular inverse (kernel 3 on its base blocks)
 and a blocked LAUUM.  As in the reference it is off by default
 (`LOGPDF_FUSED`); `config.logpdf_fused("auto" | "on")` scopes it in.
 
+`vfe_products` gives the pseudo-point bound's A Aᵀ, A b and Σ A² of
+A = L⁻¹ K̃ with one closed-form reverse rule for the substitution and its
+products (`_VfeProducts`).
+
 Spans (`utils/logging.py`): `cholesky_psd` is a `chol.factor` span and
 `solve_lower`/`solve_upper` a `solve` span, on either route; the fused
-logpdf's reverse rule is a `chol.reverse` span.
+logpdf's reverse rule is a `chol.reverse` span, and `_VfeProducts`'s a
+`solve.reverse` span.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from contextlib import contextmanager
 import torch
 
 from stheno_tpu_torch import config as _cfg
-from stheno_tpu_torch.func_transforms import is_vmapped
+from stheno_tpu_torch.func_transforms import is_vmapped, under_transform
 from stheno_tpu_torch.utils import logging as _trace
 
 #: Cholesky backend: 'auto' routes large single matrices on a CUDA device to
@@ -118,6 +123,13 @@ def cholesky_psd(K, jitter=None):
         return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
+def _torch_solve(L, b, trans):
+    vec = b.dim() == L.dim() - 1
+    b2 = b[..., None] if vec else b
+    out = torch.linalg.solve_triangular(L.mT if trans else L, b2, upper=trans)
+    return out[..., 0] if vec else out
+
+
 def solve_lower(L, b, trans=False):
     """Solve L x = b (or Lᵀ x = b when trans) with L lower triangular.
     Large single matrices take the blocked substitution."""
@@ -131,10 +143,22 @@ def solve_lower(L, b, trans=False):
             if trans:
                 return blocked_solve_upper_T(L, b, block=1024)
             return blocked_solve_lower(L, b, block=1024)
-        vec = b.dim() == L.dim() - 1
-        b2 = b[..., None] if vec else b
-        out = torch.linalg.solve_triangular(L.mT if trans else L, b2, upper=trans)
-        return out[..., 0] if vec else out
+        return _torch_solve(L, b, trans)
+
+
+def _solve_plain(L, b, trans=False):
+    """`solve_lower`'s route with no span and no reverse rule of its own,
+    for the inside of an autograd.Function: the blocked substitution where
+    `_use_blocked` sends L, `torch.linalg` otherwise."""
+    if _use_blocked(L):
+        from stheno_tpu_torch.ops.blocked_cholesky import (
+            _padded,
+            _solve_lower_impl,
+            _solve_upper_T_impl,
+        )
+
+        return _padded(_solve_upper_T_impl if trans else _solve_lower_impl, L, b, 1024)
+    return _torch_solve(L, b, trans)
 
 
 def solve_upper(U, b, trans=False):
@@ -234,6 +258,83 @@ def mvn_logpdf_psd(y, mean, K_sig):
     if fused and y.dim() == mean.dim() == 1:
         return _MvnLogpdfFused.apply(symmetrize(K_sig), y - mean)
     return mvn_logpdf_chol(y, mean, cholesky_psd(K_sig))
+
+
+def _vfe_products_composite(L, Kt, b):
+    """(A Aᵀ, A b, Σ A²) of A = L⁻¹ K̃ by the solve's reverse rule and
+    autograd's: the route under a `torch.func` transform."""
+    A = solve_lower(L, Kt)
+    return A @ A.T, A @ b, torch.sum(A * A)
+
+
+class _VfeProducts(torch.autograd.Function):
+    """(B', a, t) = (A Aᵀ, A b, Σ A²) of A = L⁻¹ K̃ (M × N), the pseudo-point
+    bound's substitution and its products, with one reverse rule for all of
+    them.  With S' = B̄' + B̄'ᵀ + 2 t̄ I, P = L⁻ᵀ S' and w = L⁻ᵀ ā:
+
+        K̃̄ = P A + w bᵀ,   L̄ = −tril(P B' + w aᵀ),   b̄ = Aᵀ ā,
+
+    one M × M × N product where the composite chain takes a substitution on
+    the M × N cotangent and three such products (`docs/internals.md`).  The
+    forward is the composite chain's, the substitution under its `solve`
+    span; the reverse rule is a `solve.reverse` span at the forward's GEMM
+    precision, counted `vfe.fused`.  A is saved detached from K̃, so the rule
+    is once differentiable: under `create_graph=True` it raises, and second
+    derivatives go through `torch.func`, whose transforms take the composite
+    chain."""
+
+    @staticmethod
+    def forward(ctx, L, Kt, b):
+        from stheno_tpu_torch.ops.blocked_cholesky import _active_prec
+
+        with _trace.span("solve"):
+            A = _solve_plain(L, Kt)
+        Bp, a, t = A @ A.T, A @ b, torch.sum(A * A)
+        ctx.prec = _active_prec()
+        ctx.span = _trace.current()
+        ctx.save_for_backward(L, A, b, Bp, a)
+        return Bp, a, t
+
+    @staticmethod
+    def backward(ctx, gB, ga, gt):
+        from stheno_tpu_torch.ops.blocked_cholesky import _mm
+
+        if torch.is_grad_enabled():
+            raise RuntimeError("vfe_products: the fused reverse rule is once differentiable; "
+                               "take second derivatives under torch.func (grad, jacrev, hessian), "
+                               "which runs the composite chain")
+        L, A, b, Bp, a = ctx.saved_tensors
+        need_L, need_K, need_b = ctx.needs_input_grad
+        L_bar = K_bar = b_bar = None
+        with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
+            if _trace.active:
+                _trace.credit("vfe.fused", 1)
+            if need_L or need_K:
+                S = gB + gB.T
+                S.diagonal().add_(2.0 * gt)
+                P = _solve_plain(L, S, trans=True)
+                w = _solve_plain(L, ga, trans=True)
+                if need_K:
+                    K_bar = _mm(P, A).addr_(w, b)
+                if need_L:
+                    L_bar = _mm(P, Bp).addr_(w, a).tril_().neg_()
+            if need_b:
+                b_bar = _mm(A.T, ga)
+        return L_bar, K_bar, b_bar
+
+
+def vfe_products(L, Kt, b):
+    """(B', a, t) = (A Aᵀ, A b, Σ A²) of A = L⁻¹ K̃, for L lower triangular
+    (M × M), K̃ (M × N) and b (N,): `_VfeProducts`, whose reverse rule does
+    half the work of the composite chain's.  Under a `torch.func` transform
+    the composite chain (`solve_lower`, then the products), as `_use_blocked`
+    sends a vmapped factor to `torch.linalg`; taken with grad enabled, it is
+    counted `vfe.composite`."""
+    if under_transform():
+        if _trace.active and torch.is_grad_enabled():
+            _trace.credit("vfe.composite", 1)
+        return _vfe_products_composite(L, Kt, b)
+    return _VfeProducts.apply(L, Kt, b)
 
 
 def mvn_sample_chol(generator, mean, L, sample_shape=()):

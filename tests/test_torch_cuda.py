@@ -216,6 +216,47 @@ def test_pseudo_point_step_at_4096_launches_the_kernels(cuda_device):
     assert err <= 5e-3, err
 
 
+def test_fused_vfe_products_at_4096_are_as_accurate_as_the_composite_chain(cuda_device):
+    """The pseudo-point bound's substitution and products (A Aᵀ, A b, Σ A²
+    of A = L⁻¹ K̃) at M = 4096, N = 32768, f32 on the blocked route: each
+    input's gradient through `_VfeProducts` lies no further from a float64
+    CPU run of the composite chain, on the same f32 inputs, than the f32
+    composite chain's does, by a factor of 2 at most (relative Frobenius
+    norms)."""
+    m, n = 4096, 32768
+    g = torch.Generator().manual_seed(5)
+    half = 0.75 * m
+    z = torch.linspace(-half, half, m, dtype=torch.float64)
+    x, _ = torch.sort(torch.rand(n, generator=g, dtype=torch.float64) * (2 * half) - half)
+
+    def se(a, c):
+        return torch.exp(-0.5 * (a[:, None] - c[None, :]) ** 2)
+
+    s = 0.05 + 0.3 * torch.rand(n, generator=g, dtype=torch.float64)
+    y = torch.sin(x / 2) + s.sqrt() * torch.randn(n, generator=g, dtype=torch.float64)
+    inputs = [t.float().double() for t in (
+        torch.linalg.cholesky(se(z, z) + 1e-6 * torch.eye(m, dtype=torch.float64)),
+        se(z, x) / s.sqrt()[None, :], (y - 0.7 - 0.1 * x) / s.sqrt())]
+    W, v = torch.randn(m, m, generator=g, dtype=torch.float64), torch.randn(m, generator=g,
+                                                                            dtype=torch.float64)
+
+    def grads(products, device, dtype):
+        leaves = [t.to(device, dtype).requires_grad_(True) for t in inputs]
+        Bp, a, t = products(*leaves)
+        val = torch.sum(W.to(device, dtype) * Bp) + a @ v.to(device, dtype) - 0.3 * t
+        return [gr.double().cpu() for gr in torch.autograd.grad(val, leaves)]
+
+    want = grads(tchol._vfe_products_composite, "cpu", torch.float64)
+    with stt.config.chol_backend("blocked"):
+        fused = grads(tchol._VfeProducts.apply, cuda_device, torch.float32)
+        composite = grads(tchol._vfe_products_composite, cuda_device, torch.float32)
+    for name, f, c, w in zip(("L", "K", "b"), fused, composite, want):
+        err_f = (torch.linalg.norm(f - w) / torch.linalg.norm(w)).item()
+        err_c = (torch.linalg.norm(c - w) / torch.linalg.norm(w)).item()
+        print(f"{name}: fused {err_f:.3e}, composite {err_c:.3e}")
+        assert err_f <= 2.0 * err_c, (name, err_f, err_c)
+
+
 def test_fused_logpdf_at_4096_matches_the_default_route(cuda_device):
     """An f32 logpdf at N = 4096 under `logpdf_fused("on")` against the
     default route: value (1e-4 relative) and gradient (5e-3), with kernel 3

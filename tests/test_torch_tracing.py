@@ -379,8 +379,12 @@ def test_spans_of_requests_and_the_pseudo_point_bound():
         val = entry.pseudo_points_neg_elbo(unflatten(th), data)
         val.backward()
     got = _by_name(T.spans())
-    assert [r["name"] for r in T.spans() if r["parent"] is None] == ["elbo"]
+    (root,) = [r for r in T.spans() if r["parent"] is None]
+    assert root["name"] == "elbo"
     assert len(got["chol.factor"]) == 2 and len(got["cov"]) == 3  # Kuu, Kuf, diag Kff
+    # the substitution and its products reverse in one rule, under the bound
+    (reverse,) = got["solve.reverse"]
+    assert reverse["parent"] == root["id"] and reverse["counts"].get("vfe.fused") == 1
 
 
 def test_a_trace_takes_its_own_spans_out_of_the_store(tmp_path):

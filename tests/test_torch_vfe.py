@@ -4,7 +4,10 @@ routing of `logpdf`, `posterior` and `rand`, and the interdomain form of
 the pseudo-point programme (inducing points in both latents of f3 = f1 + f2,
 `BlockData(f1 at z, f2 at z)`), on the `torch.linalg` route and on the
 blocked route (both packages scoped to it, with a backward panel of 256, so
-the f32 cases run the kernels' plain versions).
+the f32 cases run the kernels' plain versions).  Then the bound's
+substitution and products under one reverse rule (`ops/chol.py:_VfeProducts`)
+against the composite chain that a `torch.func` transform takes, and the
+counts that say which route ran.
 
 The inputs are made with numpy from a seed (`entry.pseudo_points_data`) and
 fed to both packages.  Tolerances: f64 value and gradient to rtol 1e-10 (the
@@ -264,3 +267,165 @@ def test_fit_improves_the_bound_at_the_example_size():
     res = entry.pseudo_points_fit(8, 2e-2, data=data)
     assert res.losses[-1] < res.losses[0]
     assert not torch.equal(res.params["z"], data[2])
+
+
+# ---------------------------------------------------------------------------
+# The substitution and its products under one reverse rule
+# (`ops/chol.py:_VfeProducts`) against the composite chain
+# ---------------------------------------------------------------------------
+
+
+def _products_inputs(m, n, seed=0, dtype=torch.float64):
+    """(L, K̃, b) as the bound makes them: L = chol(Kuu) of m inducing inputs
+    1.5 apart (SE, unit lengthscale), K̃ = Kuf / √s and b = (y − mean) / √s
+    under a heteroscedastic noise diagonal s and a non-zero mean."""
+    g = torch.Generator().manual_seed(seed)
+    half = 0.75 * m
+    z = torch.linspace(-half, half, m, dtype=dtype)
+    x, _ = torch.sort(torch.rand(n, generator=g, dtype=dtype) * (2 * half) - half)
+
+    def se(a, c):
+        return torch.exp(-0.5 * (a[:, None] - c[None, :]) ** 2)
+
+    L = torch.linalg.cholesky(se(z, z) + 1e-6 * torch.eye(m, dtype=dtype))
+    s = 0.05 + 0.3 * torch.rand(n, generator=g, dtype=dtype)
+    y = torch.sin(x / 2) + s.sqrt() * torch.randn(n, generator=g, dtype=dtype)
+    mean = 0.7 + 0.1 * x
+    return L, se(z, x) / s.sqrt()[None, :], (y - mean) / s.sqrt()
+
+
+def _probe(m, seed=1, dtype=torch.float64):
+    """A scalar of (A Aᵀ, A b, Σ A²) whose cotangents are dense: a
+    non-symmetric one of A Aᵀ, so S' = B̄' + B̄'ᵀ + 2 t̄ I is tested whole."""
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn(m, m, generator=g, dtype=dtype)
+    v = torch.randn(m, generator=g, dtype=dtype)
+    return lambda Bp, a, t: torch.sum(W * Bp) + a @ v - 0.3 * t
+
+
+def _values_and_grads(products, inputs, probe):
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    outs = products(*leaves)
+    return [o.detach() for o in outs], torch.autograd.grad(probe(*outs), leaves)
+
+
+@pytest.mark.parametrize("route,m", [("torch", 20), ("blocked", 512), ("blocked", 1100)])
+def test_fused_products_match_the_composite_chain(route, m):
+    """Value and gradient of L, K̃ and b through `_VfeProducts` against
+    `solve_lower` and autograd's products, f64, rtol 1e-10, on the
+    `torch.linalg` route and the blocked one (N = 600; M = 1100 is
+    identity-padded to two panels of 1024)."""
+    from stheno_tpu_torch.ops import chol as C
+
+    inputs, probe = _products_inputs(m, 600), _probe(m)
+    with ExitStack() as stack:
+        if route == "blocked":
+            stack.enter_context(stt.config.chol_backend("blocked"))
+        assert C._use_blocked(inputs[0]) == (route == "blocked")
+        got = _values_and_grads(C._VfeProducts.apply, inputs, probe)
+        want = _values_and_grads(C._vfe_products_composite, inputs, probe)
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-10 * w.abs().max().item())
+    for g, w in zip(got[1], want[1]):
+        _assert_grad_close(g.numpy(), w.numpy(), 1e-10)
+
+
+@pytest.mark.parametrize("route", ["torch", "blocked"])
+def test_fused_products_pass_gradcheck(route):
+    from stheno_tpu_torch.ops import chol as C
+
+    inputs = [t.requires_grad_(True) for t in _products_inputs(5, 9, seed=2)]
+    with ExitStack() as stack:
+        if route == "blocked":
+            stack.enter_context(stt.config.chol_backend("blocked"))
+        assert torch.autograd.gradcheck(C._VfeProducts.apply, inputs)
+
+
+def test_the_fused_rule_refuses_to_be_differentiated_twice():
+    """A is saved detached from K̃, so a gradient taken with
+    `create_graph=True` raises rather than dropping part of the second
+    derivative."""
+    from stheno_tpu_torch.ops import chol as C
+
+    inputs = [t.requires_grad_(True) for t in _products_inputs(5, 9, seed=2)]
+    with pytest.raises(RuntimeError, match="torch.func"):
+        torch.autograd.grad(_probe(5)(*C.vfe_products(*inputs)), inputs, create_graph=True)
+
+
+def test_second_derivatives_run_under_the_transform():
+    """Hessian-vector products of L, K̃ and b through `vfe_products` under
+    `torch.func` equal plain autograd's double backward of the composite
+    chain (f64, rtol 1e-10)."""
+    from stheno_tpu_torch.ops import chol as C
+
+    inputs, probe = _products_inputs(5, 9, seed=2), _probe(5)
+    g = torch.Generator().manual_seed(3)
+    vs = [torch.randn(t.shape, generator=g, dtype=t.dtype) for t in inputs]
+
+    def hvp_of(products):
+        def f(*args):
+            return probe(*products(*args))
+
+        return f
+
+    def directional(*args):
+        grads = torch.func.grad(hvp_of(C.vfe_products), argnums=(0, 1, 2))(*args)
+        return sum(torch.sum(gr * v) for gr, v in zip(grads, vs))
+
+    got = torch.func.grad(directional, argnums=(0, 1, 2))(*inputs)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    grads = torch.autograd.grad(hvp_of(C._vfe_products_composite)(*leaves), leaves, create_graph=True)
+    want = torch.autograd.grad(sum(torch.sum(gr * v) for gr, v in zip(grads, vs)), leaves)
+    for a, w in zip(got, want):
+        _assert_grad_close(a.detach().numpy(), w.numpy(), 1e-10)
+
+
+def _neg_elbo_problem():
+    data = _data(600, 10, torch.float64)
+    theta, unflatten = P.init(entry.pseudo_points_spec(data[2]))
+    return theta, lambda th: entry.pseudo_points_neg_elbo(unflatten(th), data)
+
+
+def test_the_transform_fallback_gives_the_fused_gradient():
+    """Under `torch.func.grad` the bound takes the composite chain; its
+    gradient is the fused route's (f64, rtol 1e-10)."""
+    theta, objective = _neg_elbo_problem()
+    th = theta.clone().requires_grad_(True)
+    (fused,) = torch.autograd.grad(objective(th), th)
+    composite = torch.func.grad(objective)(theta)
+    _assert_grad_close(composite.numpy(), fused.numpy(), 1e-10)
+
+
+def test_each_route_is_counted_on_its_span():
+    """`vfe.fused` once on the one `solve.reverse` under each `elbo` whose
+    backward ran; `vfe.composite` once on the `elbo` under the transform,
+    with no reverse rule of the fused route there; a forward alone counts
+    neither."""
+    from stheno_tpu_torch.utils import logging as T
+
+    theta, objective = _neg_elbo_problem()
+    T.clear()
+    try:
+        with T.recording():
+            for _ in range(2):
+                th = theta.clone().requires_grad_(True)
+                objective(th).backward()
+            torch.func.grad(objective)(theta)
+            with torch.no_grad():
+                objective(theta)
+        recs = T.spans()
+    finally:
+        T.clear()
+    roots = [r for r in recs if r["parent"] is None]
+    assert [r["name"] for r in roots] == ["elbo"] * 4
+    for i, root in enumerate(roots):
+        call = [r for r in recs if r["trace"] == root["id"]]
+        reverse = [r for r in call if r["name"] == "solve.reverse"]
+        assert not any("vfe.composite" in r["counts"] for r in call if r is not root)
+        assert not any("vfe.fused" in r["counts"] for r in call if r not in reverse)
+        if i < 2:
+            assert [(r["parent"], r["counts"].get("vfe.fused")) for r in reverse] == [(root["id"], 1)]
+            assert "vfe.composite" not in root["counts"]
+        else:
+            assert reverse == []
+            assert root["counts"].get("vfe.composite") == (1 if i == 2 else None)
