@@ -1,13 +1,21 @@
 """A configuration, a traffic mix and a metric are added as new files and
 new entries in a copy of the benchmark, and the harness runs the new cell
-(rehearsed on the CPU) without an edit to any file that was there."""
+(rehearsed on the CPU) without an edit to any file that was there: a query
+cell under a new traffic mix and a new end-to-end metric, and a training
+cell under the existing mix, appended to the lists of the metrics that move
+`step_ms`, with a new per-layer metric that reads the program's spans.  The
+benchmark's own checks of its cells' lists pass on the copy too."""
 
 import hashlib
 import json
 import shutil
 import time
+import types
 from pathlib import Path
 
+import test_bench_program_spans as spans_test
+import test_bench_rehearsal as rehearsal
+import torch
 from harness import runner
 
 from conftest import BENCH, ROOT
@@ -30,19 +38,58 @@ def read(run):
     return w["units"] / w["window_s"] if run["kind"] == "query" and w["units"] else None
 '''
 
+NEW_SPAN_METRIC = '''"""Host milliseconds a fit step spends inside the program's spans."""
+from harness.program_spans import host_ms
+from harness.readings import FIT
+
+
+def read(run):
+    return host_ms(run, FIT)
+'''
+
 
 def _digests(root):
     return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-def test_new_files_make_a_new_cell(tmp_path):
+def _copy(tmp_path):
+    """A checkout of the benchmark without its tests: its root, its folder
+    and the digest of each file."""
     root = tmp_path / "checkout"
     shutil.copytree(BENCH, root / "benchmark",
                     ignore=shutil.ignore_patterns("tests", "traces", ".cache", "__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
-    before = _digests(root)
-    bench = root / "benchmark"
+    return root, root / "benchmark", _digests(root)
+
+
+def _trace_on_the_cpu(monkeypatch):
+    """A traced run without a card: the profiler records the host, the
+    marker kernel is a host span of its name, and the host's operations
+    stand in for the device's."""
+    from torch.profiler import ProfilerActivity, record_function
+
+    profile, events = torch.profiler.profile, runner._events
+
+    def mark(cycles):
+        with record_function(runner.MARK_KERNEL):
+            pass
+
+    def host_events(prof):
+        ops = [e if e.name.startswith(runner.SPAN_PREFIX) else
+               types.SimpleNamespace(name=e.name, time_range=e.time_range,
+                                     device_type=torch.autograd.DeviceType.CUDA)
+               for e in prof.events()]
+        return events(types.SimpleNamespace(events=lambda: ops))
+
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda activities: profile(activities=[ProfilerActivity.CPU]))
+    monkeypatch.setattr(torch.cuda, "_sleep", mark)
+    monkeypatch.setattr(runner, "_events", host_events)
+
+
+def test_new_files_make_a_new_cell(tmp_path):
+    root, bench, before = _copy(tmp_path)
 
     cfg = json.loads((bench / "configs" / "flagship16k.json").read_text())
     cfg["n"] = 192
@@ -79,3 +126,58 @@ def test_new_files_make_a_new_cell(tmp_path):
                                       bench / "reference" / "flagship192.py",
                                       bench / "traffic" / "query_small.json",
                                       bench / "metrics" / "requests_per_s.py")}
+
+
+def test_new_files_make_a_new_training_cell(tmp_path, monkeypatch):
+    from stheno_tpu_torch.utils import logging as tracer
+
+    root, bench, before = _copy(tmp_path)
+    cell = "flagship4k.train"
+    cfg = json.loads((bench / "configs" / "flagship16k.json").read_text())
+    cfg["n"] = 4096
+    added = {bench / "configs" / "flagship4k.json": json.dumps(cfg),
+             bench / "reference" / "flagship4k.py": NEW_REFERENCE,
+             bench / "limits" / f"{cell}.json": (bench / "limits" / "flagship16k.train.json").read_text(),
+             bench / "rehearsal" / f"{cell}.json": json.dumps({"config": {"n": 192}, "traffic": {}}),
+             bench / "metrics" / "span_host_ms.train.py": NEW_SPAN_METRIC}
+    for path, text in added.items():
+        path.write_text(text)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "flagship4k", "source": "https://example.org/flagship",
+                            "file": "benchmark/configs/flagship4k.json", "reduced": ["n"], "why": "tiny"})
+    spec["workloads"].append({"name": cell, "config": "flagship4k", "traffic": "train", "chips": 1,
+                              "why": "tiny"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "step_ms" in (m["name"], m.get("moves")):
+            m["workloads"].append(cell)
+    spec["per_layer"].append({"name": "span_host_ms.train", "unit": "ms", "better": "lower",
+                              "source": "host_clock", "layer": "programme and dispatch",
+                              "moves": "step_ms", "workloads": [cell]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    result, run, ctx = runner.run_cell(root, cell, 12, 0.3, False, "cpu", time.perf_counter(),
+                                       rehearsal.tiny(cell, root))
+    assert result["correct"], result["checks"]
+    assert ctx.cfg["n"] == 192
+    assert set(runner.read_metrics(ctx, run, traced=False)) == {"setup_s", "step_ms"}
+
+    _trace_on_the_cpu(monkeypatch)
+    tracer.clear()
+    try:
+        result, run, ctx = runner.run_cell(root, cell, 13, 0.3, True, "cpu", time.perf_counter(),
+                                           rehearsal.tiny(cell, root))
+        metrics = runner.read_metrics(ctx, run, traced=True)
+    finally:
+        tracer.clear()
+    assert result["correct"], result["checks"]
+    listed = {m["name"] for m in ctx.reg.metrics(cell, traced=True)}
+    assert listed == {m["name"] for m in spec["per_layer"] if m["moves"] == "step_ms"}
+    # the readers of the card's spans may read nothing on the CPU; the host's do
+    assert {"step_mfu", "span_host_ms.train"} <= set(metrics) <= listed
+    assert metrics["span_host_ms.train"]["value"] > 0
+
+    rehearsal.test_every_cell_is_rehearsed(root)
+    spans_test.test_readers_are_listed_for_their_cells(root)
+    after = _digests(root)
+    assert [p for p, d in before.items() if after.get(p) != d] == [Path("BENCHMARK.json")]
+    assert {p.relative_to(root) for p in added} <= set(after) - set(before)

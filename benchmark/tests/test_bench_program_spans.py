@@ -10,17 +10,27 @@ from harness import runner
 from harness.registry import Registry
 
 from conftest import ROOT
+from test_bench_rehearsal import CELLS, tiny
 
 REG = Registry(ROOT)
 TRAIN = ["flagship16k.train", "vfe131k.train"]
 REQUESTS = ["flagship16k.query", "flagship16k.predict"]
-#: Each reader, the cells that list it, and what it reads.
+#: Each reader, and the cells that listed it when this was written: a
+#: floor, as a later cell joins by appending its name to these lists.
 READERS = {
     "factor_ms.train": TRAIN, "reverse_ms.train": TRAIN, "subst_ms.train": TRAIN,
     "cov_ms.train": TRAIN, "chol_gemm_tflops.train": TRAIN,
     "factor_ms.request": ["flagship16k.predict"], "subst_ms.request": REQUESTS,
     "cov_ms.request": REQUESTS, "host_ms.request": REQUESTS,
 }
+#: The traffic kinds whose cells a per-layer metric may list, by the suffix
+#: of its name, or by the end-to-end metric it moves where it has none.  A
+#: query's posterior is built in set-up, untraced: no factor to read.
+KINDS_BY_SUFFIX = {"train": {"fit"}, "request": {"query", "predict"}}
+KINDS_BY_MOVES = {"step_ms": {"fit"}, "request_p95_ms": {"query", "predict"}}
+KINDS_OF = {"factor_ms.request": {"predict"}}
+#: A fit step's one root span, by the configuration's programme.
+FIT_ROOTS = {"flagship": "logpdf", "pseudo_points": "elbo"}
 
 MS = 1_000_000
 
@@ -84,12 +94,31 @@ def read(name, run):
     return REG.reader(name).read(run)
 
 
-def test_readers_are_listed_for_their_cells():
-    listed = {m["name"]: m for m in REG.spec["per_layer"]}
-    for name, cells in READERS.items():
-        assert listed[name]["workloads"] == cells
+def kinds(metric):
+    """The traffic kinds a per-layer metric's cells may have."""
+    name = metric["name"]
+    return (KINDS_OF.get(name) or KINDS_BY_SUFFIX.get(name.rpartition(".")[2])
+            or KINDS_BY_MOVES[metric["moves"]])
+
+
+def test_readers_are_listed_for_their_cells(root=ROOT):
+    """Each span reader keeps the cells it had and reads what it did; every
+    per-layer metric's list names cells that exist, that report the
+    end-to-end metric it moves, and whose traffic is of its kind."""
+    reg = Registry(root)
+    cells = {w["name"]: reg.traffic(w["traffic"])["kind"] for w in reg.spec["workloads"]}
+    reporting = {m["name"]: set(m.get("workloads", cells)) for m in reg.spec["end_to_end"]}
+    listed = {m["name"]: m for m in reg.spec["per_layer"]}
+    for name, floor in READERS.items():
+        assert set(floor) <= set(listed[name]["workloads"]), name
         assert listed[name]["source"] == ("host_clock" if name.startswith("host_ms") else "device_trace")
         assert listed[name]["moves"] == ("step_ms" if name.endswith(".train") else "request_p95_ms")
+    for m in listed.values():
+        if "workloads" not in m:
+            continue
+        assert set(m["workloads"]) <= set(cells), m["name"]
+        assert set(m["workloads"]) <= reporting[m["moves"]], m["name"]
+        assert {cells[c] for c in m["workloads"]} <= kinds(m), m["name"]
 
 
 def test_a_fit_step_by_layer(planted):
@@ -202,13 +231,11 @@ class _HostEvent:
         return (other.t - self.t) / 1e6
 
 
-@pytest.mark.parametrize("cell", TRAIN + REQUESTS)
+@pytest.mark.parametrize("cell", CELLS)
 def test_rehearsed_units_give_every_listed_reading(cell, monkeypatch):
     """Units of each cell rehearsed on the CPU under `recording()`, with
     stand-in device events: each of the cell's readers finds its reading,
-    and the layers of a step fit inside the step."""
-    from test_bench_rehearsal import TINY
-
+    and the layers of a step fit inside the step, under one root."""
     from stheno_tpu_torch import config
     from stheno_tpu_torch.utils import logging as tracer
 
@@ -218,7 +245,7 @@ def test_rehearsed_units_give_every_listed_reading(cell, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-    ctx = runner.Context(REG, cell, 2**31 + 5, "cpu", TINY[cell])
+    ctx = runner.Context(REG, cell, 2**31 + 5, "cpu", tiny(cell))
     tracer.clear()
     try:
         with config.chol_backend("blocked"):
@@ -227,12 +254,13 @@ def test_rehearsed_units_give_every_listed_reading(cell, monkeypatch):
                 for _ in range(ps.WARMUP_UNITS + 2 + 1):
                     ctx.driver.unit(ctx, st)
         run = {"kind": ctx.kind, "trace": {"units": 1}}
-        values = {name: REG.reader(name).read(run) for name, cells in READERS.items() if cell in cells}
+        values = {m["name"]: REG.reader(m["name"]).read(run) for m in REG.metrics(cell, traced=True)
+                  if m["name"] in READERS}
         assert all(v is not None and v > 0 for v in values.values()), values
         if ctx.kind == "fit":
-            parts = sum(values[f"{k}_ms.train"] for k in ("factor", "reverse", "subst", "cov"))
-            roots = [r for r in tracer.spans() if r["parent"] is None]
-            assert {r["name"] for r in roots} == {"logpdf" if cell.startswith("flagship") else "elbo"}
+            parts = sum(values.get(f"{k}_ms.train", 0) for k in ("factor", "reverse", "subst", "cov"))
+            (root,) = {r["name"] for r in tracer.spans() if r["parent"] is None}
+            assert root == FIT_ROOTS.get(ctx.cfg["programme"], root)
             assert parts <= ps.host_ms(run, (ctx.kind,)) * 1.05
     finally:
         tracer.clear()

@@ -8,9 +8,9 @@ import math
 import numpy as np
 import pytest
 import torch
-from harness.registry import load_module
+from harness.registry import Registry, load_module
 
-from conftest import BENCH
+from conftest import BENCH, ROOT
 
 FLAGSHIP = load_module(BENCH / "reference" / "flagship16k.py", "reference")
 VFE = load_module(BENCH / "reference" / "vfe131k.py", "reference")
@@ -135,8 +135,8 @@ def test_vfe_blocks_agree():
 
 
 def test_references_are_plain():
-    """The references import nothing of the program, nor JAX."""
-    for name in ("flagship16k", "vfe131k"):
+    """Every configuration's reference imports nothing of the program, nor JAX."""
+    for name in (c["name"] for c in Registry(ROOT).spec["configs"]):
         src = (BENCH / "reference" / f"{name}.py").read_text()
         for word in ("stheno_tpu", "jax", "harness"):
             assert f"import {word}" not in src and f"from {word}" not in src

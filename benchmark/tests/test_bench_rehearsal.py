@@ -1,4 +1,5 @@
-"""The whole run of every cell, rehearsed on the CPU at a tiny size on the
+"""The whole run of every cell of `BENCHMARK.json`, rehearsed on the CPU at
+the tiny size its rehearsal file gives (`rehearsal/<cell>.json`), on the
 port's plain versions (the harness's look for a card skipped): it comes out
 correct, and it comes out not correct with each fault the cell's traffic
 can have planted underneath the timed path (`faults.py`).  The command
@@ -10,35 +11,65 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import faults
 import pytest
 from harness import device, runner
-from harness.registry import Registry
+from harness.registry import BENCH_DIR, Registry
 
 from conftest import BENCH, ROOT
 
-#: Each cell cut to a size the CPU runs in a second; widths as configured.
-TINY = {
-    "flagship16k.train": {"config": {"n": 256}},
-    "vfe131k.train": {"config": {"n": 2048, "m_per_latent": 32, "half_width": 32.0}},
-    "flagship16k.query": {"config": {"n": 256}, "traffic": {"points": 64}},
-    "flagship16k.predict": {"config": {"n": 256}, "traffic": {"points": 32, "pool": 4}},
-}
+#: The folder of the rehearsal files, one a cell: its configuration's and
+#: traffic's sizes cut so the CPU runs it in a second, widths as configured.
+REHEARSAL = "rehearsal"
+CELLS = sorted(w["name"] for w in Registry(ROOT).spec["workloads"])
 SEED = 2**31 + 977
+
+
+def tiny(cell, root=ROOT):
+    """The overrides of `cell`'s rehearsal file, `{"config": {...},
+    "traffic": {...}}`, each a few of the keys of the cell's configuration
+    and traffic files with smaller values."""
+    path = Path(root) / BENCH_DIR / REHEARSAL / f"{cell}.json"
+    if not path.is_file():
+        w = Registry(root).cell(cell)
+        raise FileNotFoundError(
+            f"cell {cell!r} has no rehearsal size: create {path.relative_to(root)} holding "
+            f'{{"config": {{...}}, "traffic": {{...}}}}, keys of {BENCH_DIR}/configs/{w["config"]}.json '
+            f'and of {BENCH_DIR}/traffic/{w["traffic"]}.json (sizes such as "n" or "points") '
+            "with values small enough for the CPU to run the cell in a second")
+    return json.loads(path.read_text())
 
 
 def rehearse(cell, seed=SEED, root=ROOT, overrides=None):
     result, run, ctx = runner.run_cell(root, cell, seed, 0.3, False, "cpu", time.perf_counter(),
-                                       overrides or TINY[cell])
+                                       overrides or tiny(cell, root))
     return result, run, ctx
 
 
-def test_every_cell_is_rehearsed():
-    assert sorted(TINY) == sorted(w["name"] for w in Registry(ROOT).spec["workloads"])
+def test_every_cell_is_rehearsed(root=ROOT):
+    """Every cell has a rehearsal file, every rehearsal file names a cell,
+    and each overrides only keys its configuration and traffic have."""
+    reg = Registry(root)
+    cells = sorted(w["name"] for w in reg.spec["workloads"])
+    for cell in cells:
+        overrides, w = tiny(cell, root), reg.cell(cell)
+        assert set(overrides) <= {"config", "traffic"}, (cell, sorted(overrides))
+        for part, found in (("config", reg.config(w["config"])), ("traffic", reg.traffic(w["traffic"]))):
+            assert set(overrides.get(part, {})) <= set(found), (cell, part)
+    assert sorted(p.stem for p in (Path(root) / BENCH_DIR / REHEARSAL).glob("*.json")) == cells
 
 
-@pytest.mark.parametrize("cell", sorted(TINY))
+def test_a_cell_without_a_rehearsal_file_is_named(tmp_path):
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(
+        {"workloads": [{"name": "new16k.train", "config": "new16k", "traffic": "train"}]}))
+    with pytest.raises(FileNotFoundError, match=r"benchmark/rehearsal/new16k\.train\.json.*"
+                                                r"configs/new16k\.json.*traffic/train\.json"):
+        tiny("new16k.train", tmp_path)
+
+
+@pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell):
     result, run, ctx = rehearse(cell)
     assert result["correct"], result["checks"]
@@ -50,7 +81,7 @@ def test_sound_run_is_correct(cell):
         assert ctx.reg.reader(name).read(run) is not None
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in sorted(TINY)
+@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
                                         for f in faults.BY_KIND[Registry(ROOT).traffic(
                                             Registry(ROOT).cell(c)["traffic"])["kind"]]])
 def test_fault_is_caught(cell, fault):
@@ -64,7 +95,7 @@ def test_same_seed_same_inputs(cell):
     import torch
 
     def inputs(seed):
-        ctx = runner.Context(Registry(ROOT), cell, seed, "cpu", TINY[cell])
+        ctx = runner.Context(Registry(ROOT), cell, seed, "cpu", tiny(cell))
         data = ctx.programme.make_data(ctx.cfg, ctx.gen, ctx.device)
         return [*data.values(), torch.rand(3, generator=ctx.gen)]
 
@@ -91,9 +122,9 @@ def test_no_run_loads_jax():
     code = (
         "import sys, json, time\n"
         f"sys.path[:0] = [{str(BENCH)!r}, {str(ROOT)!r}, {str(BENCH / 'tests')!r}]\n"
-        "from test_bench_rehearsal import TINY, rehearse\n"
+        "from test_bench_rehearsal import CELLS, rehearse\n"
         "from harness import device\n"
-        "for cell in TINY: rehearse(cell)\n"
+        "for cell in CELLS: rehearse(cell)\n"
         "print(json.dumps(device.foreign_modules()))\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n"
     )
@@ -128,7 +159,7 @@ def test_command_refuses_what_a_reader_loads(monkeypatch, capsys, loaded, code):
     monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=None: "no card (rehearsal)")
     monkeypatch.setattr(runner, "run_cell", lambda root, cell, seed, seconds, trace, dev, t0: rehearse_cell(
-        root, cell, seed, 0.3, trace, "cpu", t0, TINY[cell]))
+        root, cell, seed, 0.3, trace, "cpu", t0, tiny(cell)))
     reader = Registry.reader
 
     def loading_reader(self, name):
