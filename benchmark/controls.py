@@ -8,11 +8,13 @@ For each seed one run of the cell as the benchmark makes it (set-up, a
 short window, the comparison with the reference), in one of three modes:
 `sound` (the program as the configuration states it), `control` (the port's
 TF32 route, `control=True` in `harness/runner.py`) and, for each fault
-that the cell's traffic can have (`faults.py`), that fault planted.  One
-JSON line a run on standard output, then one summary line: for each
-compared number the largest sound reading (`lower`), the smallest control
-reading and the smallest reading of each fault.  The benchmark's own runs
-never run this.
+that the cell's traffic can have (`faults.BY_KIND`), that fault planted as
+`faults.plant` finds it: the cell's adapter's own
+(`programmes/<programme>.py`) where it defines one, the shared one in
+`faults.py` otherwise.  One JSON line a run on standard output, then one
+summary line: for each compared number the largest sound reading
+(`lower`), the smallest control reading and the smallest reading of each
+fault.  The benchmark's own runs never run this.
 """
 
 import argparse
@@ -41,7 +43,8 @@ def seeds(text):
 
 def reading(workload, seed, seconds, mode):
     t0 = time.perf_counter()
-    planted = contextlib.nullcontext() if mode in ("sound", "control") else faults.plant(mode)
+    planted = (contextlib.nullcontext() if mode in ("sound", "control")
+               else faults.plant(mode, faults.programme_of(ROOT, workload)))
     with planted:
         result, _, _ = runner.run_cell(ROOT, workload, seed, seconds, False, "cuda", t0,
                                        control=mode == "control")

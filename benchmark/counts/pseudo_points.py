@@ -13,9 +13,11 @@ yᵀ(Q_ff + σ²I)⁻¹y = (yᵀy − rᵀ(σ²K_uu + G)⁻¹r)/σ² for r = K_u
 tr Q_ff = tr(K_uu⁻¹ G).  So a step needs G, one triangle of a rank-N
 product (M²·N), and the gradient of K_uf, K̄_uf = (Ḡ + Ḡᵀ) K_uf (2·M²·N):
 3·M²·N in all.  The factors of M × M matrices are O(M³) = O(M²·N · M/N)
-and left out, so the count is a lower bound.  (`chip_smoke.py` counted
-10·M²·N, what the port's A = L_uu⁻¹ K_uf route computes; a route with less
-work would then read above 100 % of the peak.)
+and left out, so the count is a lower bound.  (The port's A = L_uu⁻¹ K_uf
+route computes 5·M²·N a step, one reverse rule for the substitution and its
+products; it computed 10·M²·N before that rule, which `chip_smoke.py`
+counted.  A count of the port's own work would move with every route that
+drops some, and one with less work could read above 100 % of the peak.)
 """
 
 

@@ -9,7 +9,9 @@ f3 = f1 + f2 (`entry.build`), f3 observed under noise.
   θ of `params.init` (each parameter positive: value = exp(raw));
 - `posterior` and `query`: the posterior of f3 at the data
   (`finite_gp.posterior`), and f1's marginals at query points;
-- `predict`: f1's marginals given a request's own data (`entry.predict`).
+- `predict`: f1's marginals given a request's own data (`entry.predict`);
+- `half_batch`: the fault of that name (`faults.py`) on the three port
+  calls that take the observations.
 """
 
 from __future__ import annotations
@@ -74,3 +76,10 @@ def predict(th, data, xq, spans):
         mean, var = entry.predict(th, data["x"], data["y"], xq)
     with spans("copy"):
         return mean.cpu(), var.cpu()
+
+
+def half_batch():
+    import faults
+
+    return faults.halving({entry: {"nlml": faults.objective("x", "y"), "predict": faults.request("x", "y")},
+                           finite_gp: {"posterior": faults.request("fx", "y")}})

@@ -8,7 +8,8 @@ f2 = v2·Matern52(·/l2), f3 = f1 + f2 observed under noise, pseudo-points
   from the seed's generator, and z = linspace(−w, w, m);
 - `fit_problem`: −ELBO by `entry.pseudo_points_neg_elbo` over the flat θ of
   `params.init` of the example's spec (positive parameters as exp(raw), z
-  trained as it is), as `entry.pseudo_points_fit` does.
+  trained as it is), as `entry.pseudo_points_fit` does;
+- `half_batch`: the fault of that name (`faults.py`) on the −ELBO's x and y.
 """
 
 from __future__ import annotations
@@ -40,3 +41,9 @@ def fit_problem(cfg, data):
         return entry.pseudo_points_neg_elbo(unflatten(th), triple)
 
     return FitProblem(theta0, objective, "neg_elbo")
+
+
+def half_batch():
+    import faults
+
+    return faults.halving({entry: {"pseudo_points_neg_elbo": faults.objective(("data", 0), ("data", 1))}})

@@ -2,9 +2,9 @@
 the tiny size its rehearsal file gives (`rehearsal/<cell>.json`), on the
 port's plain versions (the harness's look for a card skipped): it comes out
 correct, and it comes out not correct with each fault the cell's traffic
-can have planted underneath the timed path (`faults.py`).  The command
-itself refuses to run without a card, and nothing a run loads is JAX or
-the JAX package."""
+can have planted underneath the timed path (`faults.plant`: the programme's
+own fault, or the shared one).  The command itself refuses to run without
+a card, and nothing a run loads is JAX or the JAX package."""
 
 import json
 import subprocess
@@ -85,9 +85,40 @@ def test_sound_run_is_correct(cell):
                                         for f in faults.BY_KIND[Registry(ROOT).traffic(
                                             Registry(ROOT).cell(c)["traffic"])["kind"]]])
 def test_fault_is_caught(cell, fault):
-    with faults.plant(fault):
+    with faults.plant(fault, faults.programme_of(ROOT, cell)):
         result, _, _ = rehearse(cell)
     assert not result["correct"], result["checks"]
+
+
+def test_half_batch_keeps_every_other_point_of_each_block():
+    """`faults.halve` on a `FiniteGP` over two blocks: each block's every
+    other point, with the noise of those points; an argument named with an
+    index is halved inside, and an objective is scaled by 2."""
+    import torch
+    from stheno_tpu_torch import finite_gp
+    from stheno_tpu_torch.inputs import BlockData, GPPPInput
+
+    x = BlockData(GPPPInput("f1", torch.arange(5.0)), GPPPInput("f2", torch.arange(10.0, 14.0)))
+    d = torch.arange(1.0, 10.0)
+    for noise, halved in ((torch.tensor(0.1), torch.tensor(0.1)), (d, d[[0, 2, 4, 5, 7]])):
+        fx = faults.halve(finite_gp.FiniteGP(None, x, noise))
+        assert [b.x.tolist() for b in fx.x.blocks] == [[0.0, 2.0, 4.0], [10.0, 12.0]]
+        assert torch.equal(fx.noise.d, halved)
+    with pytest.raises(TypeError, match="no rule for noise of type FullNoise"):
+        faults.halve(finite_gp.FiniteGP(None, x, torch.eye(9)))
+
+    def loss(theta, data):
+        return theta * data[0].sum() + data[1].sum() + data[2].sum()
+
+    port = types.ModuleType("port")
+    port.loss = loss
+    data = (torch.arange(6.0), torch.arange(4.0), torch.ones(3))
+    with faults.halving({port: {"loss": faults.objective(("data", 0), ("data", 1))}}):
+        assert float(port.loss(1.0, data=data)) == 2.0 * ((0 + 2 + 4) + (0 + 2) + 3)
+    assert port.loss is loss
+    with pytest.raises(TypeError, match="takes no argument 'y'"):
+        with faults.halving({port: {"loss": faults.request("y")}}):
+            pass
 
 
 @pytest.mark.parametrize("cell", ["flagship16k.query", "vfe131k.train"])
