@@ -59,14 +59,22 @@ cuSOLVER's (`stheno_tpu_torch/accuracy_probe.py`).
 
 The factor depends on tril(A) only: panels read lower column slabs and the
 base kernel ignores block-upper content (reference `blocked_cholesky.py:73-78`).
-The reference's other TRSMs (the backward base case, the solves' diagonal
-blocks) are `torch.linalg.solve_triangular`.
+The backward base case is `torch.linalg.solve_triangular`.  The blocked
+solves apply their diagonal blocks as GEMMs against one stack of their
+inverses (`_diag_invs`: one kernel-3 launch, batched combines, then one
+Newton step whose residual is formed in float64) from `_INV_MIN_COLS`
+right-hand-side columns on, and by TRSM below it, as the reference does at
+every width; their reverse rules reuse the forward's stack.  A solve that
+autograd records (inside a reverse rule, for a second derivative) is one
+library TRSM on the whole of L.
 
 Tracing (`utils/logging.py`): while a span is open, `_mm` credits it with
-2·m·n·k (`gemm_flops`, the logical work at any precision), and the factor
-and the two reverse sweeps with each panel (`panels`).  The reverse rules of
-the factor and of the solves are `chol.reverse` and `solve.reverse` spans,
-children of the span the forward ran in.
+2·m·n·k (`gemm_flops`, the logical work at any precision), the factor and
+the two reverse sweeps with each panel (`panels`), and the solves with the
+diagonal blocks they applied against a stack (`solve.inv_blocks`) or by
+TRSM (`solve.trsm_blocks`).  The reverse rules of the factor and of the
+solves are `chol.reverse` and `solve.reverse` spans, children of the span
+the forward ran in.
 """
 
 from __future__ import annotations
@@ -226,6 +234,12 @@ def _gemm_flops(a, b):
     return flops
 
 
+def _exact(a, b):
+    """Whether `_mm(a, b)` is exactly `a @ b`: at 'highest', and for any
+    operand that is not f32."""
+    return _active_prec() is Precision.HIGHEST or a.dtype != torch.float32 or b.dtype != torch.float32
+
+
 def _mm(a, b):
     """a @ b at the active GEMM precision.  At 'highest', and for any
     operand that is not f32, exactly `a @ b`.  Below it the operands are
@@ -233,12 +247,36 @@ def _mm(a, b):
     column."""
     if _trace.active:
         _trace.credit("gemm_flops", _gemm_flops(a, b))
-    prec = _active_prec()
-    if prec is Precision.HIGHEST or a.dtype != torch.float32 or b.dtype != torch.float32:
+    if _exact(a, b):
         return a @ b
+    prec = _active_prec()
     if b.dim() == 1:
         return _mm_below(a, b[:, None], prec)[..., 0]
     return _mm_below(a, b, prec)
+
+
+def _mm_sub(c, a, b):
+    """c − a @ b of matrices at the active GEMM precision.  Where `_mm` is
+    exactly a @ b, one `addmm` with c in the GEMM's epilogue: the same
+    float32 arithmetic as the subtraction, with no product temporary."""
+    if not _exact(a, b):
+        return c - _mm(a, b)
+    if _trace.active:
+        _trace.credit("gemm_flops", _gemm_flops(a, b))
+    return torch.addmm(c, a, b, alpha=-1)
+
+
+def _mm_into(out, a, b):
+    """out ← a @ b of matrices at the active GEMM precision, the GEMM
+    writing straight into `out` where `_mm` is exactly a @ b.  An `out=`
+    product has no derivative: the blocked substitutions call this only
+    where autograd records nothing (`_recorded`)."""
+    if not _exact(a, b):
+        out.copy_(_mm(a, b))
+        return
+    if _trace.active:
+        _trace.credit("gemm_flops", _gemm_flops(a, b))
+    torch.mm(a, b, out=out)
 
 
 def _mm_below(a, b, prec):
@@ -259,6 +297,14 @@ _BWD_BASE = 256
 _BWD_VIA_INV = True
 _BWD_MODE = "iter"
 _BWD_BLOCK = 4096
+
+#: Narrowest right-hand side (columns) whose blocked substitution builds
+#: a stack of its diagonal blocks' inverses (`_blocked_solve`); narrower
+#: ones take TRSM.  `perf_probe subst_width` on an H100 (700 W) at
+#: n = 16384, block 1024, the stack built in the call, TRSM against the
+#: stack: 1.81 / 2.84 ms at 1 column, 2.99 / 3.32 at 8, 4.65 / 3.30 at 16,
+#: 4.73 / 3.22 at 32, 7.22 / 5.94 at 512.
+_INV_MIN_COLS = 16
 
 
 def set_bwd_params(base=None, via_inv=None, mode=None, block=None):
@@ -357,16 +403,17 @@ def _diag_blocks(L, bs):
     return L.reshape(nb, bs, nb, bs).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
 
 
-def _tri_inv_lower_batched(L, bs):
-    """Bottom-up batched L⁻¹ for n = 2^k·bs: ONE base-case call (one
-    kernel-3 launch by default) inverts every diagonal base block, then
-    log2(n/bs) rounds of batched GEMMs assemble the pairwise combines
+def _tri_inv_stack(L, bs, width):
+    """(n/width, width, width) stack of the inverses of L's aligned diagonal
+    width-blocks, for width = 2^k·bs dividing n: ONE base-case call (one
+    kernel-3 launch by default) inverts every diagonal base block, then k
+    rounds of batched GEMMs assemble the pairwise combines
 
         inv([[A, 0], [B, C]]) = [[A⁻¹, 0], [−C⁻¹ B A⁻¹, C⁻¹]]."""
     n = L.shape[-1]
     invs = _base_tri_inv(_diag_blocks(L, bs).contiguous())
     s = bs
-    while s < n:
+    while s < width:
         m = n // (2 * s)
         Bs = _diag_blocks(L, 2 * s)[:, s:, :s]
         A = invs[0::2]
@@ -377,7 +424,12 @@ def _tri_inv_lower_batched(L, bs):
         out[:, s:, s:] = C
         invs = out
         s *= 2
-    return invs[0]
+    return invs
+
+
+def _tri_inv_lower_batched(L, bs):
+    """Bottom-up batched L⁻¹ for n = 2^k·bs (`_tri_inv_stack` of one block)."""
+    return _tri_inv_stack(L, bs, L.shape[-1])[0]
 
 
 def blocked_tri_inv_lower(L, base):
@@ -701,53 +753,118 @@ def blocked_lauum(M, block=1024):
 # ---------------------------------------------------------------------------
 #   x = L⁻¹ b:   b̄ = L⁻ᵀ ḡ,  L̄ = −tril(b̄ xᵀ)
 #   x = L⁻ᵀ b:   b̄ = L⁻¹ ḡ,  L̄ = −tril(x b̄ᵀ)
+#
+#   The stack of diagonal-block inverses costs a fixed price (a kernel-3
+#   launch, log2(B/256) rounds of batched GEMMs and a Newton step) and
+#   doubles the diagonal blocks' flops, where cuBLAS's TRSM runs at a fifth
+#   of the GEMMs' rate on wide right-hand sides: hence the width threshold.
 
 
-def _solve_lower_impl(L, b, block=1024):
-    """Solve L x = b (b: (N,) or (N, K)) by blocked forward substitution."""
+def _diag_invs(L, B, base=256):
+    """(n/B, B, B) stack of the inverses X_k of L's aligned diagonal
+    B-blocks L_kk (n a multiple of B): one base-case call and batched
+    combines (`_tri_inv_stack`) where B is a power-of-two multiple of
+    min(base, B), else block by block (`blocked_tri_inv_lower`); then one
+    Newton step X_k + X_k (I − L_kk X_k) with the residual formed in float64.
+    Kernel 3 and the combines are forward substitutions, so an f32 inverse's
+    error grows with κ(L_kk), and a substitution against it with it; the
+    step takes X_k to about the rounding of the exact inverse, against which
+    neither side's substitution grows with κ (`docs/internals.md`)."""
+    bs = min(base, B)
+    k = B // bs
+    if B % bs == 0 and k & (k - 1) == 0:
+        X = _tri_inv_stack(L, bs, B)
+    else:
+        X = torch.stack([blocked_tri_inv_lower(L[c : c + B, c : c + B], base)
+                         for c in range(0, L.shape[-1], B)])
+    R = _mm(_diag_blocks(L, B).double(), X.double()).neg_()
+    R.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    return X + _mm(X, R.to(X.dtype))
+
+
+def _recorded(L, b):
+    """Whether autograd records a substitution of b against L (a reverse
+    rule under `create_graph=True`): the blocked loop writes x in place and
+    its stack has no graph, so such a solve is one TRSM on the whole of L."""
+    return torch.is_grad_enabled() and (L.requires_grad or b.requires_grad)
+
+
+def _credit_blocks(invs, nb):
+    if _trace.active:
+        _trace.credit("solve.trsm_blocks" if invs is None else "solve.inv_blocks", nb)
+
+
+def _solve_lower_impl(L, b, block=1024, invs=None):
+    """Solve L x = b (b: (N,) or (N, K)) by blocked forward substitution,
+    x_k = L_kk⁻¹ (b_k − L_k,<k x_<k): each diagonal block a GEMM against
+    `invs` (the stack of `_diag_invs`) where one is given, else a TRSM."""
     n = L.shape[-1]
     vec = b.dim() == 1
     if vec:
         b = b[:, None]
     B = min(block, n)
-    if n % B != 0:
+    if n % B != 0 or _recorded(L, b):
+        _credit_blocks(None, 1)
         x = torch.linalg.solve_triangular(L, b, upper=False)
     else:
+        _credit_blocks(invs, n // B)
         x = torch.empty_like(b)
         for kb in range(n // B):
-            c = kb * B
-            rhs = b[c : c + B]
-            if kb > 0:
-                rhs = rhs - _mm(L[c : c + B, :c], x[:c])
-            x[c : c + B] = torch.linalg.solve_triangular(L[c : c + B, c : c + B], rhs, upper=False)
+            c, e = kb * B, kb * B + B
+            rhs = b[c:e] if kb == 0 else _mm_sub(b[c:e], L[c:e, :c], x[:c])
+            if invs is None:
+                x[c:e] = torch.linalg.solve_triangular(L[c:e, c:e], rhs, upper=False)
+            else:
+                _mm_into(x[c:e], invs[kb], rhs)
     return x[:, 0] if vec else x
 
 
-def _solve_upper_T_impl(L, b, block=1024, via_inv=False):
-    """Solve Lᵀ x = b (L lower) by blocked backward substitution.
-    `via_inv=True` (the reverse sweep's fallback) applies each diagonal
-    block as a GEMM against its blocked triangular inverse instead of a
-    TRSM."""
+def _solve_upper_T_impl(L, b, block=1024, via_inv=False, invs=None):
+    """Solve Lᵀ x = b (L lower) by blocked backward substitution, the
+    mirror of `_solve_lower_impl` against the transposed inverses.
+    `via_inv=True` (the reverse sweep's fallback) builds the stack where
+    none is given."""
     n = L.shape[-1]
     vec = b.dim() == 1
     if vec:
         b = b[:, None]
     B = min(block, n)
-    if n % B != 0:
+    if n % B != 0 or _recorded(L, b):
+        _credit_blocks(None, 1)
         x = torch.linalg.solve_triangular(L.T, b, upper=True)
     else:
+        nb = n // B
+        if invs is None and via_inv:
+            invs = _diag_invs(L, B)
+        _credit_blocks(invs, nb)
         x = torch.empty_like(b)
-        for kb in reversed(range(n // B)):
-            c = kb * B
-            rhs = b[c : c + B]
-            if c + B < n:
-                rhs = rhs - _mm(L[c + B :, c : c + B].T, x[c + B :])
-            Lkk = L[c : c + B, c : c + B]
-            if via_inv:
-                x[c : c + B] = _mm(blocked_tri_inv_lower(Lkk, base=256).T, rhs)
+        for kb in reversed(range(nb)):
+            c, e = kb * B, kb * B + B
+            rhs = b[c:e] if e == n else _mm_sub(b[c:e], L[e:, c:e].T, x[e:])
+            if invs is None:
+                x[c:e] = torch.linalg.solve_triangular(L[c:e, c:e].T, rhs, upper=True)
             else:
-                x[c : c + B] = torch.linalg.solve_triangular(Lkk.T, rhs, upper=True)
+                _mm_into(x[c:e], invs[kb].T, rhs)
     return x[:, 0] if vec else x
+
+
+def _blocked_solve(L, b, block=1024, trans=False, invs=None):
+    """(x, invs): x solves Lᵀ x = b (`trans`) or L x = b by blocked
+    substitution, L identity-padded where n > block is ragged.  The diagonal
+    blocks are GEMMs against `invs` where given, else against a stack built
+    here on the padded L from `_INV_MIN_COLS` columns of b on, else TRSMs;
+    the stack applied comes back (None: TRSM) for a reverse rule to reuse."""
+    n = L.shape[-1]
+    if n > block and n % block != 0:
+        np_ = _padded_n(n, block)
+        L, b = _pad_identity(L, np_), _pad_rows(b, np_)
+    if invs is None and (1 if b.dim() == 1 else b.shape[-1]) >= _INV_MIN_COLS:
+        invs = _diag_invs(L, min(block, L.shape[-1]))
+    if trans:
+        x = _solve_upper_T_impl(L, b, block, invs=invs)
+    else:
+        x = _solve_lower_impl(L, b, block, invs)
+    return x[:n], invs
 
 
 def _outer_tril_neg(u, v):
@@ -757,43 +874,45 @@ def _outer_tril_neg(u, v):
 
 
 class _SolveLower(torch.autograd.Function):
-    """x = L⁻¹ b; the adjoint runs at the forward's GEMM precision."""
+    """x = L⁻¹ b; the adjoint runs at the forward's GEMM precision, against
+    the forward's stack of diagonal-block inverses where it built one."""
 
     @staticmethod
     def forward(ctx, L, b, block):
-        x = _solve_lower_impl(L, b, block)
+        x, invs = _blocked_solve(L, b, block)
         ctx.block = block
         ctx.prec = _active_prec()
         ctx.span = _trace.current()
-        ctx.save_for_backward(L, x)
+        ctx.save_for_backward(L, x, invs)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        L, x = ctx.saved_tensors
+        L, x, invs = ctx.saved_tensors
         with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
-            bbar = _solve_upper_T_impl(L, g, ctx.block)
+            bbar = _solve_upper_T_impl(L, g, ctx.block, invs=invs)
             Lbar = _outer_tril_neg(bbar, x) if ctx.needs_input_grad[0] else None
         return Lbar, bbar, None
 
 
 class _SolveUpperT(torch.autograd.Function):
-    """x = L⁻ᵀ b; the adjoint runs at the forward's GEMM precision."""
+    """x = L⁻ᵀ b; the adjoint runs at the forward's GEMM precision, against
+    the forward's stack of diagonal-block inverses where it built one."""
 
     @staticmethod
     def forward(ctx, L, b, block):
-        x = _solve_upper_T_impl(L, b, block)
+        x, invs = _blocked_solve(L, b, block, trans=True)
         ctx.block = block
         ctx.prec = _active_prec()
         ctx.span = _trace.current()
-        ctx.save_for_backward(L, x)
+        ctx.save_for_backward(L, x, invs)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        L, x = ctx.saved_tensors
+        L, x, invs = ctx.saved_tensors
         with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
-            bbar = _solve_lower_impl(L, g, ctx.block)
+            bbar = _solve_lower_impl(L, g, ctx.block, invs)
             Lbar = _outer_tril_neg(x, bbar) if ctx.needs_input_grad[0] else None
         return Lbar, bbar, None
 

@@ -146,19 +146,17 @@ def solve_lower(L, b, trans=False):
         return _torch_solve(L, b, trans)
 
 
-def _solve_plain(L, b, trans=False):
+def _solve_plain(L, b, trans=False, invs=None):
     """`solve_lower`'s route with no span and no reverse rule of its own,
-    for the inside of an autograd.Function: the blocked substitution where
-    `_use_blocked` sends L, `torch.linalg` otherwise."""
+    for the inside of an autograd.Function: (x, invs), the blocked
+    substitution where `_use_blocked` sends L (`_blocked_solve`: against
+    the stack `invs` of L's diagonal-block inverses where given, returning
+    the stack it applied), `torch.linalg` otherwise (invs None)."""
     if _use_blocked(L):
-        from stheno_tpu_torch.ops.blocked_cholesky import (
-            _padded,
-            _solve_lower_impl,
-            _solve_upper_T_impl,
-        )
+        from stheno_tpu_torch.ops.blocked_cholesky import _blocked_solve
 
-        return _padded(_solve_upper_T_impl if trans else _solve_lower_impl, L, b, 1024)
-    return _torch_solve(L, b, trans)
+        return _blocked_solve(L, b, 1024, trans, invs)
+    return _torch_solve(L, b, trans), None
 
 
 def solve_upper(U, b, trans=False):
@@ -277,22 +275,23 @@ class _VfeProducts(torch.autograd.Function):
     one M × M × N product where the composite chain takes a substitution on
     the M × N cotangent and three such products (`docs/internals.md`).  The
     forward is the composite chain's, the substitution under its `solve`
-    span; the reverse rule is a `solve.reverse` span at the forward's GEMM
-    precision, counted `vfe.fused`.  A is saved detached from K̃, so the rule
-    is once differentiable: under `create_graph=True` it raises, and second
-    derivatives go through `torch.func`, whose transforms take the composite
-    chain."""
+    span; its stack of L's diagonal-block inverses is kept for P and w, so
+    the reverse rule builds none.  The reverse rule is a `solve.reverse`
+    span at the forward's GEMM precision, counted `vfe.fused`.  A is saved
+    detached from K̃, so the rule is once differentiable: under
+    `create_graph=True` it raises, and second derivatives go through
+    `torch.func`, whose transforms take the composite chain."""
 
     @staticmethod
     def forward(ctx, L, Kt, b):
         from stheno_tpu_torch.ops.blocked_cholesky import _active_prec
 
         with _trace.span("solve"):
-            A = _solve_plain(L, Kt)
+            A, invs = _solve_plain(L, Kt)
         Bp, a, t = A @ A.T, A @ b, torch.sum(A * A)
         ctx.prec = _active_prec()
         ctx.span = _trace.current()
-        ctx.save_for_backward(L, A, b, Bp, a)
+        ctx.save_for_backward(L, A, b, Bp, a, invs)
         return Bp, a, t
 
     @staticmethod
@@ -303,7 +302,7 @@ class _VfeProducts(torch.autograd.Function):
             raise RuntimeError("vfe_products: the fused reverse rule is once differentiable; "
                                "take second derivatives under torch.func (grad, jacrev, hessian), "
                                "which runs the composite chain")
-        L, A, b, Bp, a = ctx.saved_tensors
+        L, A, b, Bp, a, invs = ctx.saved_tensors
         need_L, need_K, need_b = ctx.needs_input_grad
         L_bar = K_bar = b_bar = None
         with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
@@ -312,8 +311,8 @@ class _VfeProducts(torch.autograd.Function):
             if need_L or need_K:
                 S = gB + gB.T
                 S.diagonal().add_(2.0 * gt)
-                P = _solve_plain(L, S, trans=True)
-                w = _solve_plain(L, ga, trans=True)
+                P, _ = _solve_plain(L, S, trans=True, invs=invs)
+                w, _ = _solve_plain(L, ga, trans=True, invs=invs)
                 if need_K:
                     K_bar = _mm(P, A).addr_(w, b)
                 if need_L:

@@ -42,6 +42,11 @@ is a group that runs several rows.
   BASE_CHAIN            base_chain_lax, base_chain_pal: 64 serially
                         dependent 256-block factorisations
   TRSM                  trsm_lax, trsm_blocked and their _grad rows
+  SUBST_WIDTH           subst_trsm_w{k}, subst_inv_w{k}: the blocked forward
+                        substitution at block 1024 of k = 1 to 512
+                        right-hand sides, its diagonal blocks by TRSM
+                        against GEMMs on their inverses' stack, built in
+                        the call (the source of `_INV_MIN_COLS`)
   logpdf_fwd, bench_kgrad, bench_hgrad
                         the flagship decomposed, K built by broadcast
   accuracy              N = 4096 logpdf and gradient, f32 against f64
@@ -59,8 +64,8 @@ is a group that runs several rows.
   km_xla, km_pal        the broadcast SE matrix, and kernel 4 (`km_se_d1`,
                         kernel 1's SE, D = 1 instance)
 
-Group selectors are the lower-case names: base_chain, trsm, gemm_peak,
-fwd_floor, dist_p1, ring_p1, markov_1m.  Rows that the reference runs at
+Group selectors are the lower-case names: base_chain, trsm, subst_width,
+gemm_peak, fwd_floor, dist_p1, ring_p1, markov_1m.  Rows that the reference runs at
 its library default precision (HIGH) run at the port's default
 ('highest'), so no row changes what it measured before the precision
 rows came; those four rows scope their precision themselves.  The
@@ -146,6 +151,8 @@ GRAD_LADDER = [
     ("chol_grad_fused4096", 1024, 256, True, "fused", 4096),
     ("chol_grad_f1024_bb512", 1024, 512, True, "fused", 1024),
 ]
+#: right-hand side widths of the `subst_width` rows
+SUBST_WIDTHS = (1, 2, 4, 8, 16, 32, 128, 512)
 #: forward base ladder (reference `:303`): block, base
 FWD_LADDER = [(1024, 256), (1024, 512), (1024, 1024), (2048, 512), (2048, 1024)]
 
@@ -410,6 +417,34 @@ class Probe:
         rel = abs(self.results["trsm_lax"]["scalar"] - self.results["trsm_blocked"]["scalar"]) / abs(
             self.results["trsm_lax"]["scalar"])
         _log(f"trsm: lax and blocked scalars differ by {rel:.3g} relative")
+
+    def v_subst_width(self):
+        """The blocked forward substitution L x = b at N, block 1024, for b
+        of each width in SUBST_WIDTHS: its diagonal blocks by TRSM, then as
+        GEMMs against the stack of their inverses, the stack built inside
+        the timed call; max |x_stack − x_trsm| / max |x_trsm| held within
+        CHOL_RTOL."""
+        block = min(1024, self.n)
+        with torch.no_grad():
+            L = bc._blocked_cholesky_impl(self.km(0), 1024, 256)
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        for k in SUBST_WIDTHS:
+            b = torch.randn(self.n, k, generator=gen, dtype=F32, device=self.dev)
+
+            def trsm(i, b=b):
+                with torch.no_grad():
+                    return _flat_dot(bc._solve_lower_impl(L, b, block))
+
+            def inv(i, b=b):
+                with torch.no_grad():
+                    return _flat_dot(bc._solve_lower_impl(L, b, block, bc._diag_invs(L, block)))
+
+            self.timed(f"subst_trsm_w{k}", trsm)
+            with torch.no_grad():
+                x = bc._solve_lower_impl(L, b, block)
+                d = bc._solve_lower_impl(L, b, block, bc._diag_invs(L, block)) - x
+                rel = float(d.abs().max() / x.abs().max())
+            self.timed(f"subst_inv_w{k}", inv, extra={"rel_diff_vs_trsm": rel, "ok": rel <= CHOL_RTOL})
 
     # the flagship, decomposed (reference :424-479)
     def _assemble(self, x, v1, l1, l2, noise):
@@ -714,7 +749,8 @@ class Probe:
         out += [("chol_btri", self.v_chol_btri), ("chol_high_btri", self.v_chol_high_btri),
                 ("chol_pal_base", self.v_chol_pal_base),
                 ("chol_pal_all", self.v_chol_pal_all), ("base_chain", self.v_base_chain),
-                ("trsm", self.v_trsm), ("logpdf_fwd", self.v_logpdf_fwd),
+                ("trsm", self.v_trsm), ("subst_width", self.v_subst_width),
+                ("logpdf_fwd", self.v_logpdf_fwd),
                 ("bench_kgrad", self.v_bench_kgrad), ("bench_hgrad", self.v_bench_hgrad),
                 ("accuracy", self.v_accuracy), ("gemm_peak", self.v_gemm_peak),
                 ("fwd_floor", self.v_fwd_floor), ("dist_p1", self.v_dist_p1),

@@ -72,11 +72,21 @@ def test_blocked_cholesky_gradient(n, block, base, bwd_block):
     np.testing.assert_allclose(g.numpy(), g.numpy().T, rtol=0, atol=1e-12 * np.abs(g_ref).max())
 
 
-@pytest.mark.parametrize("rhs", [(), (3,)], ids=["vector", "matrix"])
-@pytest.mark.parametrize("n", [512, 1536])
+#: n -> block: 1536 > 1024 is ragged (identity-padded); 384 is no power-of-two
+#: multiple of the inverse stack's base 256, so its stack is built block by block
+SOLVE_BLOCKS = {512: 256, 1536: 1024, 768: 384}
+
+
+@pytest.mark.parametrize("rhs", [(), (3,), (tbc._INV_MIN_COLS,)], ids=["vector", "matrix", "threshold"])
+@pytest.mark.parametrize("n", list(SOLVE_BLOCKS))
 @pytest.mark.parametrize("which", ["lower", "upper_T", "upper_T_via_inv"])
 def test_blocked_solves_and_adjoints(which, n, rhs):
-    block = 256 if n == 512 else 1024  # 1536 > 1024 is ragged: padded
+    """From `_INV_MIN_COLS` columns on the diagonal blocks are GEMMs
+    against their inverses' stack (the adjoint reuses it), and narrower
+    right-hand sides take TRSM; block 384 (no power-of-two multiple of 256)
+    builds its stack block by block; `upper_T_via_inv` takes the stack
+    whatever the width."""
+    block = SOLVE_BLOCKS[n]
     L = np.linalg.cholesky(_psd(3, n))
     rng = np.random.default_rng(4)
     b = rng.normal(size=(n, *rhs))
@@ -114,6 +124,71 @@ def test_blocked_tri_inv_lower(n, base):
     want = np.asarray(jbc.blocked_tri_inv_lower(jnp.asarray(L), base=base))
     got = tbc.blocked_tri_inv_lower(torch.as_tensor(L), base=base).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_inverse_stack_holds_each_diagonal_blocks_inverse(dtype):
+    """`_diag_invs(L, B)`, one base-case call and batched combines (block
+    by block where B is no power-of-two multiple of min(256, B)), then a
+    Newton step, equals `blocked_tri_inv_lower` on each aligned diagonal
+    B-block of a well-conditioned L (f32 takes kernel 3's plain version)."""
+    L = torch.as_tensor(np.linalg.cholesky(_psd(15, 2048)), dtype=dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    for n, B in [(2048, 128), (2048, 256), (2048, 512), (2048, 1024), (2048, 2048),
+                 (1536, 384), (1536, 768)]:
+        invs = tbc._diag_invs(L[:n, :n], B)
+        assert invs.shape == (n // B, B, B)
+        for k in range(n // B):
+            want = tbc.blocked_tri_inv_lower(L[k * B : (k + 1) * B, k * B : (k + 1) * B], base=256)
+            torch.testing.assert_close(invs[k], want, rtol=0, atol=tol * want.abs().max().item())
+
+
+@pytest.mark.parametrize("jitter", [1e-3, 1e-4, 1e-5, 1e-6])
+def test_stack_substitution_is_as_accurate_as_trsm_as_kappa_grows(jitter):
+    """f32 at n = 2048, block 1024, on the factor of an SE Gram matrix of
+    sorted points 16 to a length scale plus `jitter`·I (κ(L_kk) up to about
+    10³): the forward and transposed substitutions against the stack come
+    no further from float64 than `torch.linalg.solve_triangular` on the
+    same f32 inputs (0.11–0.36× of it).  Without the stack's Newton step
+    they read 2× to some hundreds of times it."""
+    n, B = 2048, 1024
+    x = np.sort(np.random.default_rng(21).uniform(0, n / 16, size=n))
+    K = np.exp(-0.5 * (x[:, None] - x[None, :]) ** 2) + jitter * np.eye(n)
+    L = torch.linalg.cholesky(torch.as_tensor(K)).float()
+    b = torch.as_tensor(np.random.default_rng(22).normal(size=(n, 64)), dtype=torch.float32)
+    invs = tbc._diag_invs(L, B)
+    for trans, impl in ((False, tbc._solve_lower_impl), (True, tbc._solve_upper_T_impl)):
+        want = torch.linalg.solve_triangular(L.double().mT if trans else L.double(), b.double(), upper=trans)
+        library = torch.linalg.solve_triangular(L.mT if trans else L, b, upper=trans)
+        got = impl(L, b, B, invs=invs)
+        err, err_lib = ((torch.linalg.norm(v.double() - want) / torch.linalg.norm(want)).item()
+                        for v in (got, library))
+        assert err <= err_lib, (trans, err, err_lib)
+
+
+@pytest.mark.parametrize("which", ["lower", "upper_T"])
+def test_second_derivatives_through_wide_blocked_solves(which):
+    """f64, n = 512, block 256, a 3-column right-hand side: `gradgradcheck`
+    through L, along two directions of a lower-triangular perturbation.  A
+    reverse rule that autograd records solves by one TRSM on the whole of L,
+    since the blocked loop writes in place and the forward's stack of
+    diagonal-block inverses has no graph."""
+    n = 512
+    rng = np.random.default_rng(23)
+    L0 = torch.as_tensor(np.linalg.cholesky(_psd(3, n)))
+    E = torch.as_tensor(np.tril(rng.normal(size=(2, n, n))))
+    W = torch.as_tensor(rng.normal(size=(n, 3)))
+    solve = tbc.blocked_solve_lower if which == "lower" else tbc.blocked_solve_upper_T
+
+    b = torch.as_tensor(rng.normal(size=(n, 3)))
+
+    def f(theta):
+        L = L0 + theta[0] * E[0] + theta[1] * E[1]
+        return (solve(L, b, 256) * W).sum(0)
+
+    theta = torch.zeros(2, dtype=torch.float64, requires_grad=True)
+    with stt.config.chol_backend("blocked"):
+        assert torch.autograd.gradgradcheck(f, (theta,), atol=1e-6, rtol=1e-5)
 
 
 def test_blocked_cholesky_nonsquare_panel_fallback():

@@ -346,13 +346,14 @@ def test_a_backward_precision_unlike_the_forward_rebuilds_the_inverses(monkeypat
     `blocked_cholesky.py:675-689`), and otherwise rebuilds the inverses it
     needs at its own."""
     calls = []
-    real = tbc.blocked_tri_inv_lower
+    real = tbc._base_tri_inv
 
-    def counted(L, base):
+    def counted(L):
         calls.append((tbc._active_prec(), L.shape[-1]))
-        return real(L, base)
+        return real(L)
 
-    monkeypatch.setattr(tbc, "blocked_tri_inv_lower", counted)
+    # every inverse, rebuilt block by block or as a stack, starts at the base case
+    monkeypatch.setattr(tbc, "_base_tri_inv", counted)
     K = torch.as_tensor(_psd(12, 512, np.float32))
 
     def backward_calls(gemm, bwd):

@@ -387,6 +387,71 @@ def test_spans_of_requests_and_the_pseudo_point_bound():
     assert reverse["parent"] == root["id"] and reverse["counts"].get("vfe.fused") == 1
 
 
+def _base_inverses_by_span(monkeypatch):
+    """Span ids of the open span at each base-case inverse call (one call
+    builds a whole stack of diagonal-block inverses)."""
+    seen = []
+    real = tbc._base_tri_inv
+
+    def spy(L):
+        seen.append(T.current()[0])
+        return real(L)
+
+    monkeypatch.setattr(tbc, "_base_tri_inv", spy)
+    return seen
+
+
+@pytest.mark.parametrize("width", ["wide", "vector"])
+def test_blocked_solves_credit_the_blocks_each_route_applies(width, monkeypatch):
+    """A right-hand side of `_INV_MIN_COLS` columns applies the n/B diagonal
+    blocks as GEMMs against one stack, built on the `solve` span and reused
+    by the reverse rule; a vector takes TRSM on each, forward and reverse."""
+    from stheno_tpu_torch.ops.chol import solve_lower
+
+    n, wide = 2048, width == "wide"
+    builds = _base_inverses_by_span(monkeypatch)
+    rng = np.random.default_rng(1)
+    G = rng.normal(size=(n, n))
+    L = torch.linalg.cholesky(torch.as_tensor(G @ G.T / n + np.eye(n)))
+    b = torch.as_tensor(rng.normal(size=(n, tbc._INV_MIN_COLS) if wide else n)).requires_grad_(True)
+    for trans in (False, True):
+        T.clear()
+        builds.clear()
+        with config.chol_backend("blocked"), T.recording():
+            x = solve_lower(L, b, trans=trans)
+            torch.autograd.grad(x.sum(), b)
+        got = _by_name(T.spans())
+        (fwd,), (rev,) = got["solve"], got["solve.reverse"]
+        for span in (fwd, rev):
+            want = {"solve.inv_blocks": n // 1024} if wide else {"solve.trsm_blocks": n // 1024}
+            assert {k: v for k, v in span["counts"].items() if k.startswith("solve.")} == want
+        assert builds == ([fwd["id"]] if wide else [])
+
+
+def test_pseudo_point_products_build_their_stack_on_the_forward_span(monkeypatch):
+    """`vfe_products` forward and backward: `vfe.fused` once, the stack
+    built once on the `solve` span, and applied by the reverse rule's two
+    substitutions (P = L⁻ᵀS' and w = L⁻ᵀā) without a second build."""
+    from stheno_tpu_torch.ops.chol import vfe_products
+
+    m, n = 512, max(96, tbc._INV_MIN_COLS)
+    builds = _base_inverses_by_span(monkeypatch)
+    rng = np.random.default_rng(2)
+    G = rng.normal(size=(m, m))
+    L = torch.linalg.cholesky(torch.as_tensor(G @ G.T / m + np.eye(m))).requires_grad_(True)
+    Kt = torch.as_tensor(rng.normal(size=(m, n))).requires_grad_(True)
+    b = torch.as_tensor(rng.normal(size=n)).requires_grad_(True)
+    with config.chol_backend("blocked"), T.recording():
+        Bp, a, t = vfe_products(L, Kt, b)
+        torch.autograd.grad(Bp.sum() + a.sum() + t, (L, Kt, b))
+    got = _by_name(T.spans())
+    (fwd,), (rev,) = got["solve"], got["solve.reverse"]
+    assert rev["counts"]["vfe.fused"] == 1 and "vfe.fused" not in fwd["counts"]
+    assert builds == [fwd["id"]]
+    assert fwd["counts"]["solve.inv_blocks"] == 1 and rev["counts"]["solve.inv_blocks"] == 2
+    assert "solve.trsm_blocks" not in fwd["counts"] and "solve.trsm_blocks" not in rev["counts"]
+
+
 def test_a_trace_takes_its_own_spans_out_of_the_store(tmp_path):
     with T.recording(), T.span("before"):
         pass
