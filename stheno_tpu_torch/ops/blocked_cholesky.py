@@ -3,11 +3,11 @@ closed-form reverse rules (counterpart of `stheno_tpu/ops/blocked_cholesky.py`).
 
 The factorisation runs almost all of its flops in large GEMMs:
 
-- panels of `block` columns (default 1024); each step's update
+- panels of `block` columns (default `BLOCK` = 1024); each step's update
   `A[c:, c:c+B] −= L[c:, :c] @ L[c:c+B, :c]ᵀ` is one `torch.matmul` per
   earlier panel (`_left_update`), not one over all of them;
 - the diagonal B×B block recurses on the same routine down to `base`
-  (default 256), where the base-case factoriser (kernel 2,
+  (default `BASE` = 256), where the base-case factoriser (kernel 2,
   `cuda.chol_block.chol_block`, unless scoped otherwise) factors it;
 - the panel TRSM `L21 = A21 L11⁻ᵀ` is a GEMM against the explicit blocked
   triangular inverse, whose diagonal base blocks the base-case inverse
@@ -20,10 +20,11 @@ two-way split (`_chol_bwd_rec`) or the fused sweep (`_chol_bwd_fused`),
 reusing the forward's saved panel inverses where the backward can.
 `via_inv` picks how the backward's solves apply diagonal blocks: GEMMs
 against explicit inverses (default) or `torch.linalg.solve_triangular`.  The
-blocked solves carry their closed-form adjoints (`_SolveLower`,
-`_SolveUpperT`).  Ragged N is identity-padded to the next panel multiple
-outside the Functions.  `sym=True` factors 0.5·(A + Aᵀ) with the fold done
-in each panel's read; `blocked_lauum` forms Mᵀ M of a lower-triangular M.
+blocked solves carry their closed-form adjoints (`_Solve`).  Ragged N is
+identity-padded to the next panel multiple (`_pad_to_panels`): outside the
+factor's Function, inside the solves'.  `sym=True` factors 0.5·(A + Aᵀ)
+with the fold done in each panel's read; `blocked_lauum` forms Mᵀ M of a
+lower-triangular M.
 
 Base cases: the raw scoped keys `base_cholesky` and `base_tri_inv`
 (`config.scoped(base_cholesky=fn)`) swap the factoriser and the inverse of
@@ -59,22 +60,27 @@ cuSOLVER's (`stheno_tpu_torch/accuracy_probe.py`).
 
 The factor depends on tril(A) only: panels read lower column slabs and the
 base kernel ignores block-upper content (reference `blocked_cholesky.py:73-78`).
-The backward base case is `torch.linalg.solve_triangular`.  The blocked
-solves apply their diagonal blocks as GEMMs against one stack of their
-inverses (`_diag_invs`: one kernel-3 launch, batched combines, then one
-Newton step whose residual is formed in float64) from `_INV_MIN_COLS`
-right-hand-side columns on, and by TRSM below it, as the reference does at
-every width; their reverse rules reuse the forward's stack.  A solve that
-autograd records (inside a reverse rule, for a second derivative) is one
-library TRSM on the whole of L.
+The backward base case is `torch.linalg.solve_triangular`.  Every blocked
+substitution, forward or transposed, the public solves', the pseudo-point
+bound's (`ops/chol.py`) and the reverse sweeps' K̄21 = L̄21 L11⁻¹, is one
+loop (`_substitute`) behind one choice of how its diagonal blocks are
+applied (`blocked_solve`): GEMMs against a stack of their inverses, handed
+in (the solves' reverse rules reuse the forward's; the sweeps take views of
+the factor's saved panel inverses, `_stack_view`) or built
+(`_diag_invs`: one kernel-3 launch, batched combines, then one Newton step
+whose residual is formed in float64) from `_INV_MIN_COLS` right-hand-side
+columns on or where `via_inv` asks; by TRSM otherwise, as the reference
+does at every width.  A solve that autograd records (inside a reverse
+rule, for a second derivative) is one library TRSM on the whole of L.
 
-Tracing (`utils/logging.py`): while a span is open, `_mm` credits it with
-2·m·n·k (`gemm_flops`, the logical work at any precision), the factor and
-the two reverse sweeps with each panel (`panels`), and the solves with the
-diagonal blocks they applied against a stack (`solve.inv_blocks`) or by
-TRSM (`solve.trsm_blocks`).  The reverse rules of the factor and of the
-solves are `chol.reverse` and `solve.reverse` spans, children of the span
-the forward ran in.
+Tracing (`utils/logging.py`): while a span is open, each GEMM (`_mm`,
+`_mm_sub`, `_mm_into`) credits it with 2·m·n·k (`gemm_flops`, the logical
+work at any precision), the factor and the two reverse sweeps with each
+panel (`panels`), and each substitution, the sweeps' included, with the
+diagonal blocks it applied against a stack (`solve.inv_blocks`) or by TRSM
+(`solve.trsm_blocks`).  The reverse rules of the factor and of the solves
+are `chol.reverse` and `solve.reverse` spans, children of the span the
+forward ran in.
 """
 
 from __future__ import annotations
@@ -100,6 +106,12 @@ _PREC = Precision.HIGHEST
 #: forward's).  The reference measured 'default' there 56× wrong on its
 #: TPU (reference `blocked_cholesky.py:626-632`).
 _BWD_PREC = None
+
+#: Panel width of the factor and of the solves, and the width down to which
+#: the factor's diagonal blocks recurse before the base case: the defaults
+#: of every entry point here, and the widths `ops/chol.py` runs.
+BLOCK = 1024
+BASE = 256
 
 
 def set_gemm_precision(p):
@@ -299,7 +311,7 @@ _BWD_MODE = "iter"
 _BWD_BLOCK = 4096
 
 #: Narrowest right-hand side (columns) whose blocked substitution builds
-#: a stack of its diagonal blocks' inverses (`_blocked_solve`); narrower
+#: a stack of its diagonal blocks' inverses (`blocked_solve`); narrower
 #: ones take TRSM.  `perf_probe subst_width` on an H100 (700 W) at
 #: n = 16384, block 1024, the stack built in the call, TRSM against the
 #: stack: 1.81 / 2.84 ms at 1 column, 2.99 / 3.32 at 8, 4.65 / 3.30 at 16,
@@ -427,11 +439,6 @@ def _tri_inv_stack(L, bs, width):
     return invs
 
 
-def _tri_inv_lower_batched(L, bs):
-    """Bottom-up batched L⁻¹ for n = 2^k·bs (`_tri_inv_stack` of one block)."""
-    return _tri_inv_stack(L, bs, L.shape[-1])[0]
-
-
 def blocked_tri_inv_lower(L, base):
     """Explicit inverse of a lower-triangular matrix.  Power-of-2 multiples
     of `base` take the batched bottom-up construction; other sizes split in
@@ -443,7 +450,7 @@ def blocked_tri_inv_lower(L, base):
         return _base_tri_inv(L)
     nb = n // base
     if n % base == 0 and nb & (nb - 1) == 0:
-        return _tri_inv_lower_batched(L, base)
+        return _tri_inv_stack(L, base, n)[0]
     h = ((n // 2) // 64) * 64
     if h == 0:
         return _base_tri_inv(L)
@@ -465,7 +472,7 @@ def _left_update(A_panel, L_rows, L_panel, B):
     return A_panel
 
 
-def _blocked_cholesky_impl(A, block=1024, base=256, sym=False, collect_invs=False):
+def _blocked_cholesky_impl(A, block=BLOCK, base=BASE, sym=False, collect_invs=False):
     """Left-looking blocked factor of tril(A), or of 0.5·(A + Aᵀ) with
     `sym` (each panel folds in its mirrored slab, so the symmetric matrix
     is never formed).  With `collect_invs` (top level only) also returns
@@ -521,47 +528,36 @@ def _chol_bwd_base(L, L_bar):
     return torch.linalg.solve_triangular(L, W, upper=False, left=False)  # W L⁻¹
 
 
-def _inv_block(invs, g, s):
-    """The saved inverse of the diagonal block [g, g+s) of the factor: an
-    aligned diagonal sub-block of a panel inverse is the inverse of the
-    matching sub-block of L."""
-    Bf = invs.shape[-1]
-    r = g % Bf
-    return invs[g // Bf][r : r + s, r : r + s]
+def _stack_view(stack, s, m, bs=None):
+    """The inverses of the diagonal blocks of rows [s, s+m) of a triangular
+    L, as views of `stack`, the inverses of L's consecutive diagonal blocks
+    from its first row (the forward's saved panel inverses, or views of
+    them): a diagonal block of a triangular matrix's inverse is the inverse
+    of the matching block of the matrix.  With `bs`, the views are cut into
+    the bs-blocks of those rows, or None comes back where a view is no
+    whole number of them.  None gives None."""
+    if stack is None:
+        return None
+    views, o = [], 0
+    for X in stack:
+        w = X.shape[-1]
+        a, e = max(s - o, 0), min(s + m - o, w)
+        if a < e:
+            views.append(X if e - a == w else X[a:e, a:e])
+        o += w
+    if bs is None:
+        return views
+    if any(X.shape[-1] % bs for X in views):
+        return None
+    return [X if X.shape[-1] == bs else X[j : j + bs, j : j + bs]
+            for X in views for j in range(0, X.shape[-1], bs)]
 
 
-def _reuse_ok(invs, bs, g0):
-    return invs is not None and bs <= invs.shape[-1] and invs.shape[-1] % bs == 0 and g0 % bs == 0
-
-
-def _solve_upper_T_reuse(L11, b, bs, invs, c_global):
-    """Blocked backward substitution L11ᵀ x = b whose diagonal blocks are
-    GEMMs against the forward's saved inverses (L11 sits at global offset
-    `c_global` of the factor)."""
-    n = L11.shape[-1]
-    nb = n // bs
-    x = torch.empty_like(b)
-    for kb in reversed(range(nb)):
-        cc = kb * bs
-        rhs = b[cc : cc + bs]
-        if kb < nb - 1:
-            rhs = rhs - _mm(L11[cc + bs :, cc : cc + bs].T, x[cc + bs :])
-        x[cc : cc + bs] = _mm(_inv_block(invs, c_global + cc, bs).T, rhs)
-    return x
-
-
-def _right_solve(L11, Lb, bs, via_inv, invs, c):
-    """Lb L11⁻¹ (the raw cotangent of K21 from that of L21 = K21 L11⁻ᵀ) by
-    blocked substitution: against the forward's saved inverses where they
-    align and `via_inv` holds, else through `_solve_upper_T_impl`."""
-    if via_inv and _reuse_ok(invs, bs, c) and L11.shape[-1] % bs == 0:
-        return _solve_upper_T_reuse(L11, Lb.T, bs, invs, c).T
-    return _padded(_solve_upper_T_impl, L11, Lb.T, bs, via_inv).T
-
-
-def _chol_bwd_rec(L, L_bar, base, via_inv=True, invs=None, g0=0):
+def _chol_bwd_rec(L, L_bar, base, via_inv=True, invs=None):
     """Recursive blocked reverse rule (raw lower convention), reversing
-        L11 = chol(K11);  L21 = K21 L11⁻ᵀ;  L22 = chol(K22 − L21 L21ᵀ)."""
+        L11 = chol(K11);  L21 = K21 L11⁻ᵀ;  L22 = chol(K22 − L21 L21ᵀ).
+    `invs`: the forward's saved inverses of L's diagonal blocks, from its
+    first row (`_stack_view`), or None."""
     n = L.shape[-1]
     h = ((n // 2) // 64) * 64
     if n <= base or h == 0:
@@ -569,11 +565,14 @@ def _chol_bwd_rec(L, L_bar, base, via_inv=True, invs=None, g0=0):
     L11, L21, L22 = L[:h, :h], L[h:, :h], L[h:, h:]
     Lb11, Lb21, Lb22 = L_bar[:h, :h], L_bar[h:, :h], L_bar[h:, h:]
 
-    S22 = _chol_bwd_rec(L22, Lb22, base, via_inv, invs, g0 + h)
+    S22 = _chol_bwd_rec(L22, Lb22, base, via_inv, _stack_view(invs, h, n - h))
     Lb21_eff = Lb21 - _mm(S22 + S22.T, L21)
-    K21_bar = _right_solve(L11, Lb21_eff, max(base, h // 4), via_inv, invs, g0)
+    # K̄21 = L̄21 L11⁻¹ (raw convention), by blocked substitution
+    bs = max(base, h // 4)
+    K21_bar = blocked_solve(L11, Lb21_eff.T, trans=True, stack=_stack_view(invs, 0, h, bs),
+                            block=bs, via_inv=via_inv)[0].T
     Lb11_eff = Lb11 - _mm(K21_bar.T, L21)
-    S11 = _chol_bwd_rec(L11, Lb11_eff, base, via_inv, invs, g0)
+    S11 = _chol_bwd_rec(L11, Lb11_eff, base, via_inv, _stack_view(invs, 0, h))
 
     out = torch.zeros_like(L)
     out[:h, :h] = S11
@@ -584,13 +583,14 @@ def _chol_bwd_rec(L, L_bar, base, via_inv=True, invs=None, g0=0):
 
 def _sweep_block(n, block):
     """Panel width of a reverse sweep, or None when the sweep would have a
-    single or a ragged panel (the sweeps then defer to the recursive rule)."""
+    single or a ragged panel (the backward then takes the recursive rule)."""
     B = (min(block, n) // 64) * 64
     return None if B == 0 or n % B != 0 or n <= B else B
 
 
-def _chol_bwd_iter(L, L_bar, block, base, via_inv=True, invs=None):
-    """Iterative panel-sweep reverse rule; returns the SYMMETRIC gradient.
+def _chol_bwd_iter(L, L_bar, B, base, via_inv=True, invs=None):
+    """Iterative panel-sweep reverse rule over panels of B columns
+    (`_sweep_block`); returns the SYMMETRIC gradient.
 
     Reverses the factorisation panel by panel, last to first, keeping the
     symmetric gradient of the trailing Schur complement.  The reference
@@ -600,10 +600,6 @@ def _chol_bwd_iter(L, L_bar, block, base, via_inv=True, invs=None):
     back as a view.  Per panel the dominant op is one GEMM
     L̄21 −= 2·S22 @ L21 (m×m @ m×B)."""
     n = L.shape[-1]
-    B = _sweep_block(n, block)
-    if B is None:
-        K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, invs, 0)
-        return 0.5 * (K_raw + K_raw.T)
     S = torch.empty_like(L)
     for kb in reversed(range(n // B)):
         if _trace.active:
@@ -612,22 +608,25 @@ def _chol_bwd_iter(L, L_bar, block, base, via_inv=True, invs=None):
         e = c + B
         L11 = L[c:e, c:e]
         Lb11 = L_bar[c:e, c:e]
+        invs11 = _stack_view(invs, c, B)
         if e < n:
             L21 = L[e:, c:e]
             # reverse of the Schur update K22 ← K22 − L21 L21ᵀ
             Lb21_eff = L_bar[e:, c:e] - 2.0 * _mm(S[e:, e:], L21)
             # reverse of L21 = K21 L11⁻ᵀ: K̄21 = L̄21 L11⁻¹ (raw convention)
-            A21_bar = _right_solve(L11, Lb21_eff, max(base, B // 4), via_inv, invs, c)
+            bs = max(base, B // 4)
+            A21_bar = blocked_solve(L11, Lb21_eff.T, trans=True, stack=_stack_view(invs11, 0, B, bs),
+                                    block=bs, via_inv=via_inv)[0].T
             Lb11 = Lb11 - _mm(A21_bar.T, L21)
             # the symmetric convention halves the off-diagonal raw gradient
             S[e:, c:e] = 0.5 * A21_bar
             S[c:e, e:] = 0.5 * A21_bar.T
-        S11_raw = _chol_bwd_rec(L11, Lb11, base, via_inv, invs, c)
+        S11_raw = _chol_bwd_rec(L11, Lb11, base, via_inv, invs11)
         S[c:e, c:e] = 0.5 * (S11_raw + S11_raw.T)
     return S
 
 
-def _chol_bwd_fused(L, L_bar, block, base, via_inv=True, invs=None):
+def _chol_bwd_fused(L, L_bar, B, base, invs=None):
     """Fused panel-sweep reverse rule (reference `blocked_cholesky.py:556-623`);
     returns the SYMMETRIC gradient.
 
@@ -643,10 +642,6 @@ def _chol_bwd_fused(L, L_bar, block, base, via_inv=True, invs=None):
     The inverse is the forward's saved one when the panels align, else it
     is rebuilt with `blocked_tri_inv_lower`."""
     n = L.shape[-1]
-    B = _sweep_block(n, block)
-    if B is None:
-        K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, invs, 0)
-        return 0.5 * (K_raw + K_raw.T)
     S = torch.empty_like(L)
     for kb in reversed(range(n // B)):
         if _trace.active:
@@ -713,24 +708,28 @@ class _BlockedCholesky(torch.autograd.Function):
         base, via_inv, mode, block = ctx.bwd_params
         with (_trace.span("chol.reverse", ctx.span),
               _cfg.scoped(base_tri_inv=ctx.base_tri_inv, gemm_precision=ctx.bwd_prec)):
-            if mode == "fused":
-                out = _chol_bwd_fused(L, L_bar, block, base, via_inv, invs)
-            elif mode == "iter":
-                out = _chol_bwd_iter(L, L_bar, block, base, via_inv, invs)
-            else:
-                K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, invs, 0)
+            B = _sweep_block(L.shape[-1], block)
+            # the fused sweep keeps its panel inverses whatever `via_inv`;
+            # the other rules' solves take them (as views) only with it
+            views = _stack_view(invs if via_inv else None, 0, L.shape[-1])
+            if mode == "rec" or B is None:
+                K_raw = _chol_bwd_rec(L, L_bar, base, via_inv, views)
                 out = 0.5 * (K_raw + K_raw.T)
+            elif mode == "fused":
+                out = _chol_bwd_fused(L, L_bar, B, base, invs)
+            else:
+                out = _chol_bwd_iter(L, L_bar, B, base, via_inv, views)
         return out, None, None, None
 
 
-def blocked_cholesky(A, block=1024, base=256, sym=False):
+def blocked_cholesky(A, block=BLOCK, base=BASE, sym=False):
     """Lower Cholesky factor of PSD `A` (N×N) from its lower triangle (or of
     0.5·(A + Aᵀ) with `sym=True`), with the blocked closed-form reverse
     rule."""
     return _BlockedCholesky.apply(A, block, base, sym)
 
 
-def blocked_lauum(M, block=1024):
+def blocked_lauum(M, block=BLOCK):
     """S = Mᵀ M for lower-triangular M with ~n³/6 multiply-adds (LAPACK
     LAUUM's job, reference `blocked_cholesky.py:706-731`): per panel J
     (c = J·B), one GEMM M[c:, :c+B]ᵀ @ M[c:, c:c+B] gives the block column
@@ -760,7 +759,7 @@ def blocked_lauum(M, block=1024):
 #   of the GEMMs' rate on wide right-hand sides: hence the width threshold.
 
 
-def _diag_invs(L, B, base=256):
+def _diag_invs(L, B, base=BASE):
     """(n/B, B, B) stack of the inverses X_k of L's aligned diagonal
     B-blocks L_kk (n a multiple of B): one base-case call and batched
     combines (`_tri_inv_stack`) where B is a power-of-two multiple of
@@ -784,87 +783,61 @@ def _diag_invs(L, B, base=256):
 
 def _recorded(L, b):
     """Whether autograd records a substitution of b against L (a reverse
-    rule under `create_graph=True`): the blocked loop writes x in place and
-    its stack has no graph, so such a solve is one TRSM on the whole of L."""
+    rule under `create_graph=True`): the blocked loop's GEMMs write x in
+    place and a stack has no graph, so such a solve is one TRSM on the
+    whole of L."""
     return torch.is_grad_enabled() and (L.requires_grad or b.requires_grad)
 
 
-def _credit_blocks(invs, nb):
+def _substitute(L, b, trans, stack, B):
+    """x solving L x = b, or Lᵀ x = b with `trans`, by blocked forward (or
+    backward) substitution over the diagonal B-blocks (B divides n):
+    x_k = T_kk⁻¹ (b_k − T_k,j x_j) over the blocks j done, T = L or Lᵀ.
+    Each update is one GEMM with b_k in its epilogue (`_mm_sub`); each
+    diagonal block one GEMM into x_k against stack[k] (its transpose for
+    Lᵀ, `_mm_into`), or a TRSM where `stack` is None."""
+    n = L.shape[-1]
+    nb = n // B
     if _trace.active:
-        _trace.credit("solve.trsm_blocks" if invs is None else "solve.inv_blocks", nb)
+        _trace.credit("solve.trsm_blocks" if stack is None else "solve.inv_blocks", nb)
+    T = L.T if trans else L
+    x = torch.empty_like(b)
+    for kb in reversed(range(nb)) if trans else range(nb):
+        c, e = kb * B, kb * B + B
+        lo, hi = (e, n) if trans else (0, c)
+        rhs = b[c:e] if lo == hi else _mm_sub(b[c:e], T[c:e, lo:hi], x[lo:hi])
+        if stack is None:
+            x[c:e] = torch.linalg.solve_triangular(T[c:e, c:e], rhs, upper=trans)
+        else:
+            _mm_into(x[c:e], stack[kb].T if trans else stack[kb], rhs)
+    return x
 
 
-def _solve_lower_impl(L, b, block=1024, invs=None):
-    """Solve L x = b (b: (N,) or (N, K)) by blocked forward substitution,
-    x_k = L_kk⁻¹ (b_k − L_k,<k x_<k): each diagonal block a GEMM against
-    `invs` (the stack of `_diag_invs`) where one is given, else a TRSM."""
+def blocked_solve(L, b, trans=False, stack=None, block=BLOCK, via_inv=None):
+    """(x, stack): x solves L x = b, or Lᵀ x = b with `trans` (b: (n,) or
+    (n, k)), by blocked substitution over diagonal blocks of `block` rows,
+    L identity-padded where n > block is ragged (`_pad_to_panels`).  The
+    one choice of how the diagonal blocks are applied:
+
+    - against `stack` where the caller hands one in (`_diag_invs` of the
+      padded L, or `_stack_view` of the factor's saved panel inverses);
+    - else against a stack built here (`_diag_invs`) from `_INV_MIN_COLS`
+      columns of b on, or whatever the width where `via_inv` is True;
+    - else (or with `via_inv` False) by TRSM.
+
+    A solve that autograd records (`_recorded`) is one TRSM on the whole of
+    L.  The stack applied comes back (None: TRSM) for a reverse rule to
+    reuse."""
     n = L.shape[-1]
     vec = b.dim() == 1
-    if vec:
-        b = b[:, None]
-    B = min(block, n)
-    if n % B != 0 or _recorded(L, b):
-        _credit_blocks(None, 1)
-        x = torch.linalg.solve_triangular(L, b, upper=False)
-    else:
-        _credit_blocks(invs, n // B)
-        x = torch.empty_like(b)
-        for kb in range(n // B):
-            c, e = kb * B, kb * B + B
-            rhs = b[c:e] if kb == 0 else _mm_sub(b[c:e], L[c:e, :c], x[:c])
-            if invs is None:
-                x[c:e] = torch.linalg.solve_triangular(L[c:e, c:e], rhs, upper=False)
-            else:
-                _mm_into(x[c:e], invs[kb], rhs)
-    return x[:, 0] if vec else x
-
-
-def _solve_upper_T_impl(L, b, block=1024, via_inv=False, invs=None):
-    """Solve Lᵀ x = b (L lower) by blocked backward substitution, the
-    mirror of `_solve_lower_impl` against the transposed inverses.
-    `via_inv=True` (the reverse sweep's fallback) builds the stack where
-    none is given."""
-    n = L.shape[-1]
-    vec = b.dim() == 1
-    if vec:
-        b = b[:, None]
-    B = min(block, n)
-    if n % B != 0 or _recorded(L, b):
-        _credit_blocks(None, 1)
-        x = torch.linalg.solve_triangular(L.T, b, upper=True)
-    else:
-        nb = n // B
-        if invs is None and via_inv:
-            invs = _diag_invs(L, B)
-        _credit_blocks(invs, nb)
-        x = torch.empty_like(b)
-        for kb in reversed(range(nb)):
-            c, e = kb * B, kb * B + B
-            rhs = b[c:e] if e == n else _mm_sub(b[c:e], L[e:, c:e].T, x[e:])
-            if invs is None:
-                x[c:e] = torch.linalg.solve_triangular(L[c:e, c:e].T, rhs, upper=True)
-            else:
-                _mm_into(x[c:e], invs[kb].T, rhs)
-    return x[:, 0] if vec else x
-
-
-def _blocked_solve(L, b, block=1024, trans=False, invs=None):
-    """(x, invs): x solves Lᵀ x = b (`trans`) or L x = b by blocked
-    substitution, L identity-padded where n > block is ragged.  The diagonal
-    blocks are GEMMs against `invs` where given, else against a stack built
-    here on the padded L from `_INV_MIN_COLS` columns of b on, else TRSMs;
-    the stack applied comes back (None: TRSM) for a reverse rule to reuse."""
-    n = L.shape[-1]
-    if n > block and n % block != 0:
-        np_ = _padded_n(n, block)
-        L, b = _pad_identity(L, np_), _pad_rows(b, np_)
-    if invs is None and (1 if b.dim() == 1 else b.shape[-1]) >= _INV_MIN_COLS:
-        invs = _diag_invs(L, min(block, L.shape[-1]))
-    if trans:
-        x = _solve_upper_T_impl(L, b, block, invs=invs)
-    else:
-        x = _solve_lower_impl(L, b, block, invs)
-    return x[:n], invs
+    L, b = _pad_to_panels(L, b[:, None] if vec else b, block)
+    B = min(block, L.shape[-1])
+    if _recorded(L, b):
+        stack, B = None, L.shape[-1]
+    elif stack is None and (b.shape[-1] >= _INV_MIN_COLS if via_inv is None else via_inv):
+        stack = _diag_invs(L, B)
+    x = _substitute(L, b, trans, stack, B)[:n]
+    return (x[:, 0] if vec else x), stack
 
 
 def _outer_tril_neg(u, v):
@@ -873,98 +846,63 @@ def _outer_tril_neg(u, v):
     return M.tril_().neg_()
 
 
-class _SolveLower(torch.autograd.Function):
-    """x = L⁻¹ b; the adjoint runs at the forward's GEMM precision, against
-    the forward's stack of diagonal-block inverses where it built one."""
+class _Solve(torch.autograd.Function):
+    """x = L⁻¹ b, or x = L⁻ᵀ b with `trans`; the adjoint runs at the
+    forward's GEMM precision, against the forward's stack of diagonal-block
+    inverses where it built one."""
 
     @staticmethod
-    def forward(ctx, L, b, block):
-        x, invs = _blocked_solve(L, b, block)
-        ctx.block = block
+    def forward(ctx, L, b, block, trans):
+        x, stack = blocked_solve(L, b, trans, block=block)
+        ctx.block, ctx.trans = block, trans
         ctx.prec = _active_prec()
         ctx.span = _trace.current()
-        ctx.save_for_backward(L, x, invs)
+        ctx.save_for_backward(L, x, stack)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        L, x, invs = ctx.saved_tensors
+        L, x, stack = ctx.saved_tensors
         with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
-            bbar = _solve_upper_T_impl(L, g, ctx.block, invs=invs)
-            Lbar = _outer_tril_neg(bbar, x) if ctx.needs_input_grad[0] else None
-        return Lbar, bbar, None
+            bbar, _ = blocked_solve(L, g, not ctx.trans, stack, ctx.block)
+            Lbar = None
+            if ctx.needs_input_grad[0]:
+                Lbar = _outer_tril_neg(x, bbar) if ctx.trans else _outer_tril_neg(bbar, x)
+        return Lbar, bbar, None, None
 
 
-class _SolveUpperT(torch.autograd.Function):
-    """x = L⁻ᵀ b; the adjoint runs at the forward's GEMM precision, against
-    the forward's stack of diagonal-block inverses where it built one."""
-
-    @staticmethod
-    def forward(ctx, L, b, block):
-        x, invs = _blocked_solve(L, b, block, trans=True)
-        ctx.block = block
-        ctx.prec = _active_prec()
-        ctx.span = _trace.current()
-        ctx.save_for_backward(L, x, invs)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        L, x, invs = ctx.saved_tensors
-        with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
-            bbar = _solve_lower_impl(L, g, ctx.block, invs)
-            Lbar = _outer_tril_neg(x, bbar) if ctx.needs_input_grad[0] else None
-        return Lbar, bbar, None
-
-
-# ---------------------------------------------------------------------------
-# Ragged-N padding: chol([[A, 0], [0, I]]) = [[chol(A), 0], [0, I]] and
-# [[L, 0], [0, I]] [x; xp] = [b; 0] give x = L⁻¹b, xp = 0.  The pad and slice
-# sit outside the Functions, so autograd differentiates them natively and
-# the reverse rules always see panel-divisible shapes.
-# ---------------------------------------------------------------------------
-
-
-def _padded_n(n, block):
-    return -(-n // block) * block
-
-
-def _pad_identity(A, np_):
-    """[[A, 0], [0, I]] of size np_."""
-    eye = torch.eye(np_ - A.shape[-1], dtype=A.dtype, device=A.device)
-    return torch.block_diag(A, eye)
-
-
-def _pad_rows(b, np_):
-    return torch.cat([b, b.new_zeros((np_ - b.shape[0], *b.shape[1:]))])
-
-
-def _padded(solve, L, b, block, *args):
-    """`solve(L, b, block, *args)`, identity-padding a ragged n > block."""
+def _pad_to_panels(L, b, block):
+    """(L, b) of a ragged n > block padded to the next multiple of block: L
+    identity-padded, b (where not None) zero-padded; as given otherwise.
+    chol([[A, 0], [0, I]]) = [[chol(A), 0], [0, I]], and [[L, 0], [0, I]]
+    [x; xp] = [b; 0] gives x = L⁻¹b, xp = 0 (Lᵀ alike)."""
     n = L.shape[-1]
-    if n > block and n % block != 0:
-        np_ = _padded_n(n, block)
-        return solve(_pad_identity(L, np_), _pad_rows(b, np_), block, *args)[:n]
-    return solve(L, b, block, *args)
+    if n <= block or n % block == 0:
+        return L, b
+    pad = -(-n // block) * block - n
+    L = torch.block_diag(L, torch.eye(pad, dtype=L.dtype, device=L.device))
+    if b is not None:
+        b = torch.cat([b, b.new_zeros((pad, *b.shape[1:]))])
+    return L, b
 
 
-def cholesky_blocked_padded(A, block=1024, base=256, sym=False):
+def cholesky_blocked_padded(A, block=BLOCK, base=BASE, sym=False):
     """`blocked_cholesky` for any n: ragged sizes above `block` are
-    identity-padded to the next panel multiple."""
+    identity-padded to the next panel multiple, outside the Function, so
+    autograd differentiates the pad and the reverse rule sees whole panels."""
     n = A.shape[-1]
-    if n > block and n % block != 0:
-        Lp = blocked_cholesky(_pad_identity(A, _padded_n(n, block)), block, base, sym)
-        return Lp[:n, :n]
-    return blocked_cholesky(A, block, base, sym)
+    Ap, _ = _pad_to_panels(A, None, block)
+    L = blocked_cholesky(Ap, block, base, sym)
+    return L if Ap is A else L[:n, :n]
 
 
-def blocked_solve_lower(L, b, block=1024):
+def blocked_solve_lower(L, b, block=BLOCK):
     """Solve L x = b by blocked forward substitution, with the closed-form
     O(N²) adjoint.  Ragged n > block is identity-padded."""
-    return _padded(_SolveLower.apply, L, b, block)
+    return _Solve.apply(L, b, block, False)
 
 
-def blocked_solve_upper_T(L, b, block=1024):
+def blocked_solve_upper_T(L, b, block=BLOCK):
     """Solve Lᵀ x = b by blocked backward substitution (L lower), with the
     closed-form O(N²) adjoint.  Ragged n > block is identity-padded."""
-    return _padded(_SolveUpperT.apply, L, b, block)
+    return _Solve.apply(L, b, block, True)

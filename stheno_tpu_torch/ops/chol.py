@@ -115,7 +115,7 @@ def cholesky_psd(K, jitter=None):
 
             if jitter is not None:
                 K = add_jitter(K, jitter)
-            return cholesky_blocked_padded(K, block=1024, base=256)
+            return cholesky_blocked_padded(K)
         K = symmetrize(K)
         if jitter is not None:
             K = add_jitter(K, jitter)
@@ -123,10 +123,12 @@ def cholesky_psd(K, jitter=None):
         return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
-def _torch_solve(L, b, trans):
+def _torch_solve(L, b, trans, upper=False):
+    """The library solve of L x = b, or Lᵀ x = b with `trans`, for L lower
+    (upper with `upper`) triangular and b a vector or a matrix."""
     vec = b.dim() == L.dim() - 1
     b2 = b[..., None] if vec else b
-    out = torch.linalg.solve_triangular(L.mT if trans else L, b2, upper=trans)
+    out = torch.linalg.solve_triangular(L.mT if trans else L, b2, upper=trans != upper)
     return out[..., 0] if vec else out
 
 
@@ -135,36 +137,28 @@ def solve_lower(L, b, trans=False):
     Large single matrices take the blocked substitution."""
     with _trace.span("solve"):
         if _use_blocked(L):
-            from stheno_tpu_torch.ops.blocked_cholesky import (
-                blocked_solve_lower,
-                blocked_solve_upper_T,
-            )
+            from stheno_tpu_torch.ops.blocked_cholesky import blocked_solve_lower, blocked_solve_upper_T
 
-            if trans:
-                return blocked_solve_upper_T(L, b, block=1024)
-            return blocked_solve_lower(L, b, block=1024)
+            return (blocked_solve_upper_T if trans else blocked_solve_lower)(L, b)
         return _torch_solve(L, b, trans)
 
 
-def _solve_plain(L, b, trans=False, invs=None):
+def _solve_plain(L, b, trans=False, stack=None):
     """`solve_lower`'s route with no span and no reverse rule of its own,
-    for the inside of an autograd.Function: (x, invs), the blocked
-    substitution where `_use_blocked` sends L (`_blocked_solve`: against
-    the stack `invs` of L's diagonal-block inverses where given, returning
-    the stack it applied), `torch.linalg` otherwise (invs None)."""
+    for the inside of an autograd.Function: (x, stack), `blocked_solve`
+    where `_use_blocked` sends L (against `stack`, the inverses of L's
+    diagonal blocks, where given; the stack it applied comes back),
+    `torch.linalg` otherwise (stack None)."""
     if _use_blocked(L):
-        from stheno_tpu_torch.ops.blocked_cholesky import _blocked_solve
+        from stheno_tpu_torch.ops.blocked_cholesky import blocked_solve
 
-        return _blocked_solve(L, b, 1024, trans, invs)
+        return blocked_solve(L, b, trans, stack)
     return _torch_solve(L, b, trans), None
 
 
 def solve_upper(U, b, trans=False):
     with _trace.span("solve"):
-        vec = b.dim() == U.dim() - 1
-        b2 = b[..., None] if vec else b
-        out = torch.linalg.solve_triangular(U.mT if trans else U, b2, upper=not trans)
-        return out[..., 0] if vec else out
+        return _torch_solve(U, b, trans, upper=True)
 
 
 def chol_solve(L, b):
@@ -229,6 +223,7 @@ class _MvnLogpdfFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from stheno_tpu_torch.ops.blocked_cholesky import (
+            BASE,
             blocked_lauum,
             blocked_solve_upper_T,
             blocked_tri_inv_lower,
@@ -241,7 +236,7 @@ class _MvnLogpdfFused(torch.autograd.Function):
             alpha = blocked_solve_upper_T(L, z)
             K_bar = None
             if ctx.needs_input_grad[0]:
-                K_inv = blocked_lauum(blocked_tri_inv_lower(L, base=256))
+                K_inv = blocked_lauum(blocked_tri_inv_lower(L, BASE))
                 K_bar = (0.5 * g) * (torch.outer(alpha, alpha) - K_inv)
         return K_bar, -g * alpha
 
@@ -287,11 +282,11 @@ class _VfeProducts(torch.autograd.Function):
         from stheno_tpu_torch.ops.blocked_cholesky import _active_prec
 
         with _trace.span("solve"):
-            A, invs = _solve_plain(L, Kt)
+            A, stack = _solve_plain(L, Kt)
         Bp, a, t = A @ A.T, A @ b, torch.sum(A * A)
         ctx.prec = _active_prec()
         ctx.span = _trace.current()
-        ctx.save_for_backward(L, A, b, Bp, a, invs)
+        ctx.save_for_backward(L, A, b, Bp, a, stack)
         return Bp, a, t
 
     @staticmethod
@@ -302,7 +297,7 @@ class _VfeProducts(torch.autograd.Function):
             raise RuntimeError("vfe_products: the fused reverse rule is once differentiable; "
                                "take second derivatives under torch.func (grad, jacrev, hessian), "
                                "which runs the composite chain")
-        L, A, b, Bp, a, invs = ctx.saved_tensors
+        L, A, b, Bp, a, stack = ctx.saved_tensors
         need_L, need_K, need_b = ctx.needs_input_grad
         L_bar = K_bar = b_bar = None
         with _trace.span("solve.reverse", ctx.span), _cfg.scoped(gemm_precision=ctx.prec):
@@ -311,8 +306,8 @@ class _VfeProducts(torch.autograd.Function):
             if need_L or need_K:
                 S = gB + gB.T
                 S.diagonal().add_(2.0 * gt)
-                P, _ = _solve_plain(L, S, trans=True, invs=invs)
-                w, _ = _solve_plain(L, ga, trans=True, invs=invs)
+                P, _ = _solve_plain(L, S, trans=True, stack=stack)
+                w, _ = _solve_plain(L, ga, trans=True, stack=stack)
                 if need_K:
                     K_bar = _mm(P, A).addr_(w, b)
                 if need_L:

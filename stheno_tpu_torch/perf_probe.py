@@ -433,16 +433,16 @@ class Probe:
 
             def trsm(i, b=b):
                 with torch.no_grad():
-                    return _flat_dot(bc._solve_lower_impl(L, b, block))
+                    return _flat_dot(bc.blocked_solve(L, b, block=block, via_inv=False)[0])
 
             def inv(i, b=b):
                 with torch.no_grad():
-                    return _flat_dot(bc._solve_lower_impl(L, b, block, bc._diag_invs(L, block)))
+                    return _flat_dot(bc.blocked_solve(L, b, block=block, via_inv=True)[0])
 
             self.timed(f"subst_trsm_w{k}", trsm)
             with torch.no_grad():
-                x = bc._solve_lower_impl(L, b, block)
-                d = bc._solve_lower_impl(L, b, block, bc._diag_invs(L, block)) - x
+                x = bc.blocked_solve(L, b, block=block, via_inv=False)[0]
+                d = bc.blocked_solve(L, b, block=block, via_inv=True)[0] - x
                 rel = float(d.abs().max() / x.abs().max())
             self.timed(f"subst_inv_w{k}", inv, extra={"rel_diff_vs_trsm": rel, "ok": rel <= CHOL_RTOL})
 

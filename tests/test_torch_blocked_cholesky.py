@@ -96,7 +96,8 @@ def test_blocked_solves_and_adjoints(which, n, rhs):
         # their inverses; it runs inside a backward, so it has no adjoint of
         # its own (the adjoint of the Lᵀ solve is the "upper_T" case's)
         x_ref = jbc.blocked_solve_upper_T(jnp.asarray(L), jnp.asarray(b), block, True)
-        x = tbc._padded(tbc._solve_upper_T_impl, torch.as_tensor(L), torch.as_tensor(b), block, True)
+        x, _ = tbc.blocked_solve(torch.as_tensor(L), torch.as_tensor(b), trans=True, block=block,
+                                 via_inv=True)
         np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), rtol=1e-10, atol=1e-13)
         return
     if which == "lower":
@@ -157,10 +158,10 @@ def test_stack_substitution_is_as_accurate_as_trsm_as_kappa_grows(jitter):
     L = torch.linalg.cholesky(torch.as_tensor(K)).float()
     b = torch.as_tensor(np.random.default_rng(22).normal(size=(n, 64)), dtype=torch.float32)
     invs = tbc._diag_invs(L, B)
-    for trans, impl in ((False, tbc._solve_lower_impl), (True, tbc._solve_upper_T_impl)):
+    for trans in (False, True):
         want = torch.linalg.solve_triangular(L.double().mT if trans else L.double(), b.double(), upper=trans)
         library = torch.linalg.solve_triangular(L.mT if trans else L, b, upper=trans)
-        got = impl(L, b, B, invs=invs)
+        got, _ = tbc.blocked_solve(L, b, trans, invs, B)
         err, err_lib = ((torch.linalg.norm(v.double() - want) / torch.linalg.norm(want)).item()
                         for v in (got, library))
         assert err <= err_lib, (trans, err, err_lib)

@@ -94,7 +94,17 @@ def test_the_reference_pool_reads_the_ports_files(runs, monkeypatch):
     theirs = json.loads(buf.getvalue().strip().splitlines()[-1])
     with contextlib.redirect_stdout(io.StringIO()):
         ours = nuts_pool.main(paths)
-    assert theirs == ours
+    # The draws are float32.  The reference's ESS comes back in float64 (its
+    # last steps promote under x64) and its R̂ sums in XLA's order, where the
+    # port stays in float32 in torch's order: ESS agrees to about 1e-6
+    # relative, R̂ to about 1e-7.  The fields rounded from them differ by one
+    # unit of their last place where the wall-clock `dt` puts a value by a
+    # rounding boundary; every other field is equal.
+    last_place = {"ess_per_s": 0.01, "ess_per_s_device": 0.01, "rhat_max": 1e-4}
+    assert {k: v for k, v in theirs.items() if k not in last_place} == {
+        k: v for k, v in ours.items() if k not in last_place}
+    for k, unit in last_place.items():
+        assert abs(theirs[k] - ours[k]) <= 1.001 * unit, (k, theirs[k], ours[k])
 
 
 def test_pool_checks_its_files(runs, tmp_path):

@@ -320,14 +320,23 @@ def test_panels_of_the_factor_and_its_reverse_sweeps(mode):
 
 
 def test_gemm_flops_are_the_products_of_the_gemms(monkeypatch):
+    """The GEMMs go through `_mm`, or, in the blocked substitution, through
+    `_mm_sub` (c − a @ b) and `_mm_into` (out ← a @ b), which credit their
+    products themselves at 'highest'."""
     shapes = []
-    mm = tbc._mm
 
-    def watched(a, b):
-        shapes.append((tuple(a.shape), tuple(b.shape)))
-        return mm(a, b)
+    def watch(name):
+        gemm = getattr(tbc, name)
 
-    monkeypatch.setattr(tbc, "_mm", watched)
+        def watched(*args):
+            a, b = args[-2:]
+            shapes.append((tuple(a.shape), tuple(b.shape)))
+            return gemm(*args)
+
+        monkeypatch.setattr(tbc, name, watched)
+
+    for name in ("_mm", "_mm_sub", "_mm_into"):
+        watch(name)
     x, y, theta = _flagship(1024)
     with config.chol_backend("blocked"), config.bwd_params(block=256), T.recording():
         val, leaves = _step(x, y, theta)
@@ -403,9 +412,10 @@ def _base_inverses_by_span(monkeypatch):
 
 @pytest.mark.parametrize("width", ["wide", "vector"])
 def test_blocked_solves_credit_the_blocks_each_route_applies(width, monkeypatch):
-    """A right-hand side of `_INV_MIN_COLS` columns applies the n/B diagonal
-    blocks as GEMMs against one stack, built on the `solve` span and reused
-    by the reverse rule; a vector takes TRSM on each, forward and reverse."""
+    """`blocked_solve`'s choice: a right-hand side of `_INV_MIN_COLS`
+    columns applies the n/B diagonal blocks as GEMMs against one stack,
+    built on the `solve` span and handed to the reverse rule; a vector
+    takes TRSM on each, forward and reverse."""
     from stheno_tpu_torch.ops.chol import solve_lower
 
     n, wide = 2048, width == "wide"
@@ -430,8 +440,9 @@ def test_blocked_solves_credit_the_blocks_each_route_applies(width, monkeypatch)
 
 def test_pseudo_point_products_build_their_stack_on_the_forward_span(monkeypatch):
     """`vfe_products` forward and backward: `vfe.fused` once, the stack
-    built once on the `solve` span, and applied by the reverse rule's two
-    substitutions (P = L⁻ᵀS' and w = L⁻ᵀā) without a second build."""
+    built once on the `solve` span (`blocked_solve`), and handed to the
+    reverse rule's two substitutions (P = L⁻ᵀS' and w = L⁻ᵀā), which build
+    none."""
     from stheno_tpu_torch.ops.chol import vfe_products
 
     m, n = 512, max(96, tbc._INV_MIN_COLS)
@@ -450,6 +461,27 @@ def test_pseudo_point_products_build_their_stack_on_the_forward_span(monkeypatch
     assert builds == [fwd["id"]]
     assert fwd["counts"]["solve.inv_blocks"] == 1 and rev["counts"]["solve.inv_blocks"] == 2
     assert "solve.trsm_blocks" not in fwd["counts"] and "solve.trsm_blocks" not in rev["counts"]
+
+
+@pytest.mark.parametrize("mode", ["iter", "rec"])
+def test_reverse_sweeps_solve_against_the_saved_panel_inverses(mode, monkeypatch):
+    """The factor's reverse rule solves K̄21 = L̄21 L11⁻¹ through
+    `blocked_solve` against views of the forward's saved panel inverses
+    (`_stack_view`): `chol.reverse` credits the diagonal blocks it applied
+    (`solve.inv_blocks`), none by TRSM, and builds no stack of its own."""
+    from stheno_tpu_torch.ops.chol import cholesky_psd
+
+    n = 2048
+    builds = _base_inverses_by_span(monkeypatch)
+    rng = np.random.default_rng(3)
+    G = rng.normal(size=(n, n))
+    A = torch.as_tensor(G @ G.T / n + np.eye(n)).requires_grad_(True)
+    with config.chol_backend("blocked"), config.bwd_params(block=512, mode=mode), T.recording():
+        cholesky_psd(A).sum().backward()
+    got = _by_name(T.spans())
+    (factor,), (rev,) = got["chol.factor"], got["chol.reverse"]
+    assert rev["counts"].get("solve.inv_blocks", 0) > 0 and "solve.trsm_blocks" not in rev["counts"]
+    assert builds and set(builds) == {factor["id"]}
 
 
 def test_a_trace_takes_its_own_spans_out_of_the_store(tmp_path):
