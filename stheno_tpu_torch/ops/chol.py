@@ -19,7 +19,8 @@ and a blocked LAUUM.  As in the reference it is off by default
 
 `vfe_products` gives the pseudo-point bound's A Aᵀ, A b and Σ A² of
 A = L⁻¹ K̃ with one closed-form reverse rule for the substitution and its
-products (`_VfeProducts`).
+products (`_VfeProducts`); A Aᵀ is built from its lower blocks and mirrored
+where M splits into leaves of `_SYM_LEAF` rows (`_sym_product`).
 
 Spans (`utils/logging.py`): `cholesky_psd` is a `chol.factor` span and
 `solve_lower`/`solve_upper` a `solve` span, on either route; the fused
@@ -260,6 +261,39 @@ def _vfe_products_composite(L, Kt, b):
     return A @ A.T, A @ b, torch.sum(A * A)
 
 
+#: Fewest rows of a diagonal leaf of `_sym_product`.
+_SYM_LEAF = 1024
+
+
+def _sym_product(A):
+    """A Aᵀ of A (M × N) from its lower blocks, mirrored.  d is the most
+    halvings of M's rows that leave whole leaves of `_SYM_LEAF` rows or
+    more; at each level ℓ = 1 … d the sibling halves (X₁, X₂) of every
+    block give X₂ X₁ᵀ in one strided batched product on views of A, the 2^d
+    leaves A_i A_iᵀ one more, and the strict lower triangle is copied onto
+    the upper, so the result is exactly symmetric.  With d = 0, `A @ A.T`.
+    Where it splits, it credits `vfe.sym` on the open span."""
+    m, n = A.shape
+    d = 0
+    while m % 2 ** (d + 1) == 0 and m >> (d + 1) >= _SYM_LEAF:
+        d += 1
+    if d == 0:
+        return A @ A.T
+    if _trace.active:
+        _trace.credit("vfe.sym", 1)
+    B = A.new_empty(m, m)
+    for lvl in range(1, d + 1):
+        g, h = 1 << (lvl - 1), m >> lvl
+        X = A.view(g, 2, h, n)
+        # block k of the level sits at rows (2k + 1)h, columns 2kh
+        torch.bmm(X[:, 1], X[:, 0].mT, out=B.as_strided((g, h, h), (2 * h * (m + 1), m, 1), h * m))
+    h = m >> d
+    X = A.view(1 << d, h, n)
+    torch.bmm(X, X.mT, out=B.as_strided((1 << d, h, h), (h * (m + 1), m, 1)))
+    i = torch.arange(m, device=A.device)
+    return torch.where(i[:, None] >= i, B, B.mT)
+
+
 class _VfeProducts(torch.autograd.Function):
     """(B', a, t) = (A Aᵀ, A b, Σ A²) of A = L⁻¹ K̃ (M × N), the pseudo-point
     bound's substitution and its products, with one reverse rule for all of
@@ -270,7 +304,8 @@ class _VfeProducts(torch.autograd.Function):
     one M × M × N product where the composite chain takes a substitution on
     the M × N cotangent and three such products (`docs/internals.md`).  The
     forward is the composite chain's, the substitution under its `solve`
-    span; its stack of L's diagonal-block inverses is kept for P and w, so
+    span, but for B' = `_sym_product(A)`, the lower blocks of A Aᵀ mirrored;
+    its stack of L's diagonal-block inverses is kept for P and w, so
     the reverse rule builds none.  The reverse rule is a `solve.reverse`
     span at the forward's GEMM precision, counted `vfe.fused`.  A is saved
     detached from K̃, so the rule is once differentiable: under
@@ -283,7 +318,7 @@ class _VfeProducts(torch.autograd.Function):
 
         with _trace.span("solve"):
             A, stack = _solve_plain(L, Kt)
-        Bp, a, t = A @ A.T, A @ b, torch.sum(A * A)
+        Bp, a, t = _sym_product(A), A @ b, torch.sum(A * A)
         ctx.prec = _active_prec()
         ctx.span = _trace.current()
         ctx.save_for_backward(L, A, b, Bp, a, stack)

@@ -257,6 +257,33 @@ def test_fused_vfe_products_at_4096_are_as_accurate_as_the_composite_chain(cuda_
         assert err_f <= 2.0 * err_c, (name, err_f, err_c)
 
 
+def test_symmetric_product_at_4096_is_the_full_product_mirrored(cuda_device, monkeypatch):
+    """B' = A Aᵀ at M = 4096, N = 32768, f32, from its lower blocks
+    (`_sym_product`: two levels and the leaves, three batched products):
+    exactly symmetric, and within float32 rounding of `A @ A.T`: its largest
+    gap to it, and to a float64 product, relative to max |B'|, at most
+    twice `A @ A.T`'s own gap to the float64 product."""
+    m, n = 4096, 32768
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    A = torch.randn(m, n, generator=g, device=cuda_device)
+    shapes = []
+    bmm = torch.bmm
+    monkeypatch.setattr(torch, "bmm", lambda *a, **k: shapes.append(tuple(a[0].shape)) or bmm(*a, **k))
+    got = tchol._sym_product(A)
+    assert shapes == [(1, 2048, n), (2, 1024, n), (4, 1024, n)]
+    lib = A @ A.T
+    A64 = A.double()
+    want = A64 @ A64.T
+    scale = got.abs().max().item()
+    assert torch.equal(got, got.T)
+    gap = (got - lib).abs().max().item() / scale
+    err_sym = (got.double() - want).abs().max().item() / scale
+    err_lib = (lib.double() - want).abs().max().item() / scale
+    print(f"gap {gap:.3e}, sym {err_sym:.3e}, lib {err_lib:.3e}")
+    assert gap <= 2.0 * err_lib, (gap, err_lib)
+    assert err_sym <= 2.0 * err_lib, (err_sym, err_lib)
+
+
 def test_wide_blocked_solves_at_4096_are_as_accurate_as_the_library(cuda_device):
     """f32 at M = 4096 against an 8192-column right-hand side: the blocked
     forward and transposed substitutions, whose diagonal blocks are GEMMs

@@ -309,14 +309,54 @@ def _values_and_grads(products, inputs, probe):
     return [o.detach() for o in outs], torch.autograd.grad(probe(*outs), leaves)
 
 
-@pytest.mark.parametrize("route,m", [("torch", 20), ("blocked", 512), ("blocked", 1100)])
-def test_fused_products_match_the_composite_chain(route, m):
+def _sym_leaf(monkeypatch, leaf):
+    """`_SYM_LEAF` set to `leaf` (None keeps it), so that B' = A Aᵀ is built
+    from its lower blocks at test sizes."""
+    from stheno_tpu_torch.ops import chol as C
+
+    if leaf is not None:
+        monkeypatch.setattr(C, "_SYM_LEAF", leaf)
+
+
+@pytest.mark.parametrize("m,levels", [(512, 2), (384, 1), (1100, 2), (200, 0)])
+def test_the_symmetric_product_is_the_full_product_mirrored(m, levels, monkeypatch):
+    """`_sym_product(A)` at `_SYM_LEAF` = 128: one batched product a level
+    and one for the leaves (none where M < 256: `A @ A.T`), equal to
+    `A @ A.T` to rtol 1e-12 in f64 and exactly symmetric; M = 1100 splits
+    twice into leaves of 275 rows."""
+    from stheno_tpu_torch.ops import chol as C
+
+    _sym_leaf(monkeypatch, 128)
+    products = []
+    bmm = torch.bmm
+    monkeypatch.setattr(torch, "bmm", lambda *a, **k: products.append(a[0].shape) or bmm(*a, **k))
+    L, Kt, _ = _products_inputs(m, 300)
+    A = torch.linalg.solve_triangular(L, Kt, upper=False)
+    got, want = C._sym_product(A), A @ A.T
+    h = m >> levels
+    assert products == ([(2 ** (lvl - 1), m >> lvl, 300) for lvl in range(1, levels + 1)]
+                        + [(2**levels, h, 300)] if levels else [])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12 * want.abs().max().item())
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("route,m,leaf", [
+    pytest.param("torch", 20, None, id="torch-20"),
+    pytest.param("blocked", 512, None, id="blocked-512"),
+    pytest.param("blocked", 1100, None, id="blocked-1100"),
+    pytest.param("torch", 384, 128, id="torch-384-sym"),
+    pytest.param("blocked", 512, 128, id="blocked-512-sym"),
+    pytest.param("blocked", 1100, 128, id="blocked-1100-sym"),
+])
+def test_fused_products_match_the_composite_chain(route, m, leaf, monkeypatch):
     """Value and gradient of L, K̃ and b through `_VfeProducts` against
     `solve_lower` and autograd's products, f64, rtol 1e-10, on the
     `torch.linalg` route and the blocked one (N = 600; M = 1100 is
-    identity-padded to two panels of 1024)."""
+    identity-padded to two panels of 1024), with B' as one product and, at
+    `_SYM_LEAF` = 128 (`-sym`), from its lower blocks."""
     from stheno_tpu_torch.ops import chol as C
 
+    _sym_leaf(monkeypatch, leaf)
     inputs, probe = _products_inputs(m, 600), _probe(m)
     with ExitStack() as stack:
         if route == "blocked":
@@ -330,11 +370,19 @@ def test_fused_products_match_the_composite_chain(route, m):
         _assert_grad_close(g.numpy(), w.numpy(), 1e-10)
 
 
-@pytest.mark.parametrize("route", ["torch", "blocked"])
-def test_fused_products_pass_gradcheck(route):
+@pytest.mark.parametrize("route,m,leaf", [
+    pytest.param("torch", 5, None, id="torch"),
+    pytest.param("blocked", 5, None, id="blocked"),
+    pytest.param("torch", 8, 2, id="torch-sym"),
+    pytest.param("blocked", 8, 2, id="blocked-sym"),
+])
+def test_fused_products_pass_gradcheck(route, m, leaf, monkeypatch):
+    """gradcheck of `_VfeProducts`; at M = 8 with `_SYM_LEAF` = 2 (`-sym`),
+    B' from its lower blocks over two levels."""
     from stheno_tpu_torch.ops import chol as C
 
-    inputs = [t.requires_grad_(True) for t in _products_inputs(5, 9, seed=2)]
+    _sym_leaf(monkeypatch, leaf)
+    inputs = [t.requires_grad_(True) for t in _products_inputs(m, 9, seed=2)]
     with ExitStack() as stack:
         if route == "blocked":
             stack.enter_context(stt.config.chol_backend("blocked"))
@@ -429,3 +477,32 @@ def test_each_route_is_counted_on_its_span():
         else:
             assert reverse == []
             assert root["counts"].get("vfe.composite") == (1 if i == 2 else None)
+
+
+@pytest.mark.parametrize("leaf,engaged", [(5, True), (11, False)])
+def test_the_lower_block_route_is_counted_on_the_forward_span(leaf, engaged, monkeypatch):
+    """`vfe.sym` once on the span the forward ran in (each `elbo`, M = 20)
+    where B' is built from its lower blocks (`_SYM_LEAF` = 5: two levels,
+    leaves of 5 rows), with or without a backward; absent where M is below
+    2 · `_SYM_LEAF` (11) and under the `torch.func` transform, which takes
+    the composite chain; on no other span."""
+    from stheno_tpu_torch.utils import logging as T
+
+    _sym_leaf(monkeypatch, leaf)
+    theta, objective = _neg_elbo_problem()
+    T.clear()
+    try:
+        with T.recording():
+            th = theta.clone().requires_grad_(True)
+            objective(th).backward()
+            torch.func.grad(objective)(theta)
+            with torch.no_grad():
+                objective(theta)
+        recs = T.spans()
+    finally:
+        T.clear()
+    roots = [r for r in recs if r["parent"] is None]
+    assert [r["name"] for r in roots] == ["elbo"] * 3
+    assert not any("vfe.sym" in r["counts"] for r in recs if r not in roots)
+    want = 1 if engaged else None
+    assert [r["counts"].get("vfe.sym") for r in roots] == [want, None, want]
