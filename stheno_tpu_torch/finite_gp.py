@@ -18,7 +18,9 @@ Spans (`utils/logging.py`): each public verb is one (`logpdf`, `elbo`,
 `posterior`, `rand`, and the posteriors' `posterior.mean`, `posterior.var`,
 `posterior.cov`, `cov2` and `var2` under the same names), and each
 covariance block asked of the process graph is a `cov` span, credited with
-the entries it assembles (`elems`).
+the entries it assembles (`elems`); the reverse of the graph's algebra behind
+a block with a gradient, from its cotangent to the end of the backward pass,
+is a `graph.reverse` span under it.
 """
 
 from __future__ import annotations
@@ -201,11 +203,17 @@ def marginals(fx: FiniteGP) -> Marginals:
 
 def _graph_block(fn, *args):
     """`fn(*args)`, a covariance block (or its diagonal) of the process
-    graph, under a `cov` span credited with its entries."""
-    with _trace.span("cov"):
+    graph, under a `cov` span credited with its entries.  While spans
+    record, the reverse of the graph's algebra behind a block that
+    requires grad is a `graph.reverse` span under that `cov` span
+    (`_trace.on_reverse`); otherwise the block's autograd graph is left
+    as it is."""
+    with _trace.span("cov") as sp:
         K = fn(*args)
-        if _trace.active:
+        if sp is not None:
             _trace.credit("elems", K.numel())
+            if K.requires_grad and not under_transform():
+                _trace.on_reverse(K, "graph.reverse", sp.handle())
     return K
 
 
@@ -227,12 +235,37 @@ def _like(t, ref):
 
 def logpdf(fx, y):
     """log N(y; m, K + Σ).  `y` may be (N,) or (N, S).  A `SparseFiniteGP`
-    gives its ELBO (per column of a 2-D `y`)."""
+    gives its ELBO (per column of a 2-D `y`).  Constant leaves of the
+    process graph (`graph.split_constants`) stay out of the factored
+    covariance and enter as a part of rank r (`ops/chol.mvn_logpdf_lowrank`),
+    so float32 carries their scales' gradients."""
     if isinstance(fx, SparseFiniteGP):
         return _sparse_logpdf(fx, y)
     with _trace.span("logpdf"):
-        K = fx.cov()
-        return _chol.mvn_logpdf_psd(_like(y, K), fx.mean(), K)
+        split = _constant_split(fx)
+        if split is None:
+            K = fx.cov()
+            return _chol.mvn_logpdf_psd(_like(y, K), fx.mean(), K)
+        f, x, U, a = split
+        K = fx.noise.add_to(_graph_block(f.cov, x))
+        return _chol.mvn_logpdf_lowrank(_like(y, K), fx.mean(), K, U, a)
+
+
+def _constant_split(fx):
+    """(f′, x, U, a) of `graph.split_constants` for the process `fx` reads
+    (a `GPPP` query routed to its process), or None: where no constant
+    leaf comes out, for a posterior process, and under a `torch.func`
+    transform, whose batched covariances take the dense route."""
+    from stheno_tpu_torch.gppp import GPPP
+    from stheno_tpu_torch.graph import AbstractProcess, split_constants
+
+    if under_transform():
+        return None
+    f, x = fx.f.extract(fx.x) if isinstance(fx.f, GPPP) else (fx.f, fx.x)
+    if not isinstance(f, AbstractProcess):
+        return None
+    split = split_constants(f, x)
+    return None if split is None else (split[0], x, *split[1:])
 
 
 def rand(generator, fx, num_samples=None):

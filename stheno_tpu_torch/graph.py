@@ -20,7 +20,9 @@ shifts (`AddConstGP`, `AddFnGP`), function scalings (`ScaledFnGP`), input
 warps and composition (`CompositeGP`: `stretch`, `select`, `periodic`,
 `shift`, `compose`, `f @ warp`), `additive_gp`, wrapped leaves
 (`WrappedGP`, `atomic`) and the stacking of processes over `BlockData`
-(`CrossGP`, `cross`), which `GPPP` routing builds for a `BlockData` query.
+(`CrossGP`, `cross`), which `GPPP` routing builds for a `BlockData` query;
+its dense block assembly is a `cov.cross` span (`utils/logging.py`), credited
+with the `blocks` it computes and their `elems`.
 A function-valued argument is a `ParamFn` (its tensors reach autograd as
 any tensor does), a warp, or any callable (held as a `StaticFn`).
 
@@ -43,6 +45,7 @@ from stheno_tpu_torch.kernels.base import Kernel, kernelmatrix, kernelmatrix_dia
 from stheno_tpu_torch.means import MeanFunction, as_mean
 from stheno_tpu_torch.ops.pairwise import ensure_2d
 from stheno_tpu_torch.tree import as_param, frozen_dataclass, static_field
+from stheno_tpu_torch.utils import logging as _trace
 
 
 class GPC:
@@ -822,9 +825,14 @@ class CrossGP(AbstractProcess):
         if not isinstance(x2, BlockData):
             raise TypeError("CrossGP.cov2 expects BlockData on both sides")
         bs2 = self._blocks(x2)
-        rows = [torch.cat([cross_cov(fi, fj, bi, bj) for fj, bj in zip(self.fs, bs2)], dim=1)
-                for fi, bi in zip(self.fs, bs)]
-        return torch.cat(rows, dim=0)
+        with _trace.span("cov.cross") as sp:
+            rows = [torch.cat([cross_cov(fi, fj, bi, bj) for fj, bj in zip(self.fs, bs2)], dim=1)
+                    for fi, bi in zip(self.fs, bs)]
+            K = torch.cat(rows, dim=0)
+            if sp is not None:
+                _trace.credit("blocks", len(bs) * len(bs2))
+                _trace.credit("elems", K.numel())
+        return K
 
     def var(self, x):
         return torch.cat([f.var(b) for f, b in zip(self.fs, self._blocks(x))])
@@ -873,6 +881,91 @@ def cross(fs) -> CrossGP:
         raise ValueError("cross requires at least one process")
     gpc = _check_same_gpc(*fs)
     return CrossGP(fs, n=gpc.next_index(), gpc=gpc)
+
+
+# ---------------------------------------------------------------------------
+# Constant leaves taken out of a covariance
+
+
+def _children(f):
+    """The processes node `f` is built from."""
+    for fld in dataclasses.fields(f):
+        v = getattr(f, fld.name)
+        if isinstance(v, AbstractProcess):
+            yield v
+        elif isinstance(v, tuple):
+            yield from (c for c in v if isinstance(c, AbstractProcess))
+
+
+def _leaf_uses(f, uses):
+    """Add to `uses` (by leaf index) every path from `f` down to each leaf."""
+    if f._is_atomic:
+        uses[f.n] = uses.get(f.n, 0) + 1
+    for c in _children(f):
+        _leaf_uses(c, uses)
+
+
+def _without_constants(f, uses):
+    """(f less its constant leaves, their amplitudes).  A leaf
+    `GP(ConstantKernel(c))` reached once (`uses`), through sums and
+    scalings alone, adds (σ₁⋯σₖ·√c)²·11ᵀ to f's covariance, σ₁…σₖ the
+    scalings above it, and nothing to any cross-covariance; every other
+    node is kept whole.  The rest is None where nothing is left."""
+    from stheno_tpu_torch.kernels.zoo import ConstantKernel
+
+    if isinstance(f, AtomicGP):
+        if isinstance(f.kernel, ConstantKernel) and uses[f.n] == 1:
+            c = f.kernel.c
+            return None, [torch.sqrt(c) if torch.is_tensor(c) else math.sqrt(c)]
+        return f, []
+    if isinstance(f, ScaledGP):
+        rest, amps = _without_constants(f.f, uses)
+        if not amps:
+            return f, []
+        return (None if rest is None else dataclasses.replace(f, f=rest)), [f.sigma * a for a in amps]
+    if isinstance(f, SumGP):
+        left, amps_l = _without_constants(f.left, uses)
+        right, amps_r = _without_constants(f.right, uses)
+        if not (amps_l or amps_r):
+            return f, []
+        rest = right if left is None else left if right is None else (
+            dataclasses.replace(f, left=left, right=right))
+        return rest, amps_l + amps_r
+    return f, []
+
+
+def split_constants(f, x):
+    """cov(f(x)) as a dense part and a part of rank r: (f′, U, a) with
+
+        cov(f(x)) = cov(f′(x)) + U diag(a²) Uᵀ,
+
+    U (N × r) holding for each constant leaf taken out (`_without_constants`)
+    a column of ones on the rows of its block of x (of a `CrossGP` over
+    `BlockData`; on every row otherwise) and a (r,) their amplitudes.  A
+    block whose process is constant throughout is kept whole.  None where
+    no leaf comes out."""
+    cross_ = isinstance(f, CrossGP)
+    fs, blocks = (f.fs, f._blocks(x)) if cross_ else ((f,), (x,))
+    uses = {}
+    for g in fs:
+        _leaf_uses(g, uses)
+    rests, spans, amps, off = [], [], [], 0
+    for g, b in zip(fs, blocks):
+        rest, a = _without_constants(g, uses)
+        if rest is None:
+            rest, a = g, []
+        rests.append(rest)
+        spans += [(off, input_length(b))] * len(a)
+        amps += a
+        off += input_length(b)
+    if not amps:
+        return None
+    dt, dev = input_dtype(x), input_device(x)
+    U = torch.zeros((off, len(amps)), dtype=dt, device=dev)
+    for k, (start, nb) in enumerate(spans):
+        U[start:start + nb, k] = 1.0
+    a = torch.stack([torch.as_tensor(v, dtype=dt).to(dev).reshape(()) for v in amps])
+    return (dataclasses.replace(f, fs=tuple(rests)) if cross_ else rests[0]), U, a
 
 
 def _independent(f, g) -> bool:

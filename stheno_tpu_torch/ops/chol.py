@@ -11,6 +11,10 @@ goes to `torch.linalg.cholesky`, as the reference sends it to
 `record_chol_sizes()` collects the (N, dtype) of every factor
 `cholesky_psd` makes in its block (the samplers' `precision='auto'` rule).
 
+`mvn_logpdf_lowrank` takes a covariance given as a dense part and a part of
+rank r (the constant terms of a process graph, `graph.split_constants`): it
+factors the dense part alone and reads the rest through r × r products.
+
 `mvn_logpdf_psd` can route a single-vector logpdf to the fused form
 (`_MvnLogpdfFused`), whose backward is the closed form ½(ααᵀ − K⁻¹) with
 K⁻¹ built by the blocked triangular inverse (kernel 3 on its base blocks)
@@ -252,6 +256,35 @@ def mvn_logpdf_psd(y, mean, K_sig):
     if fused and y.dim() == mean.dim() == 1:
         return _MvnLogpdfFused.apply(symmetrize(K_sig), y - mean)
     return mvn_logpdf_chol(y, mean, cholesky_psd(K_sig))
+
+
+def mvn_logpdf_lowrank(y, mean, K, U, a):
+    """log N(y; mean, K + U diag(a²) Uᵀ) for PSD K (N × N), U (N × r) and
+    amplitudes a (r,), on the factor L of K alone: with z = L⁻¹(y − mean),
+    W = L⁻¹U (one substitution for both) and M = I + diag(a) WᵀW diag(a),
+
+        log det = log det K + log det M,
+        quad    = ‖z‖² − ‖M⁻¹ᐟ² diag(a) Wᵀz‖²
+
+    (the determinant lemma and Woodbury's identity; M is r × r).  So a's
+    gradient comes from r × r products of the substitution, where the
+    dense route would sum the N × N cotangent of K over the blocks U spans:
+    a sum that float32 cannot carry where K⁻¹'s entries are large and
+    cancel.  `y` may be (N,) or (N, S)."""
+    n = K.shape[-1]
+    diff = y - (mean[..., None] if y.dim() == mean.dim() + 1 else mean)
+    D = diff[:, None] if diff.dim() == 1 else diff
+    s = D.shape[-1]
+    L = cholesky_psd(K)
+    Z = solve_lower(L, torch.cat([D, U.to(D)], dim=1))
+    z, W = Z[:, :s], Z[:, s:] * a
+    M = W.T @ W
+    M.diagonal().add_(1.0)
+    Lm = torch.linalg.cholesky_ex(M).L  # M ⪰ I: no check, so no wait for the device
+    c = torch.linalg.solve_triangular(Lm, W.T @ z, upper=False)
+    quad = torch.sum(z * z, dim=0) - torch.sum(c * c, dim=0)
+    out = -0.5 * (n * math.log(2.0 * math.pi) + chol_logdet(L) + chol_logdet(Lm) + quad)
+    return out[0] if diff.dim() == 1 else out
 
 
 def _vfe_products_composite(L, Kt, b):

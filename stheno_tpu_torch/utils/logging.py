@@ -42,6 +42,11 @@ recording over a long run holds a bounded number of records and events.
 A span never calls `record_function`: that would leave a shadow on the
 device's timeline.
 
+`on_reverse(t, name, parent)` marks a layer whose reverse has no rule of
+its own to hold a span (the process graph's algebra, which autograd
+differentiates op by op): from the moment a backward pass has `t`'s
+cotangent to the pass's end.
+
 `credit(key, n)` adds `n` to a count of the innermost open span on this
 thread (`panels`, `gemm_flops`, `elems`), and `LaunchCounter.add` credits it
 with one launch of its kernel (`launches.<kernel>`).  Callers test the
@@ -177,9 +182,14 @@ class _Span:
         self._named = parent
 
     def __enter__(self):
-        global active
         stack = _stack()
-        parent = self._named or (stack[-1].handle() if stack else None)
+        self.open(self._named or (stack[-1].handle() if stack else None))
+        stack.append(self)
+        return self
+
+    def open(self, parent):
+        """Start the span under `parent`, on no thread's stack."""
+        global active
         self.id = next(_ids)
         self.parent, self.trace = (None, self.id) if parent is None else parent
         self.thread = _thread_id()
@@ -191,21 +201,24 @@ class _Span:
             # the device given: without it torch looks the device up anew
             self.stream = torch.cuda.current_stream(self.dev)
             self.ev0 = _record_event(self.dev, self.stream)
-        stack.append(self)
         with _lock:
             active += 1
         return self
 
     def __exit__(self, *exc):
+        self.close()
+        _stack().pop()
+        return False
+
+    def close(self):
+        """End the span, on whichever thread."""
         global active
         if self.ev0 is not None:
             self.ev1 = _record_event(self.dev, self.stream)
         self.t1 = time.time_ns()
-        _stack().pop()
         with _lock:
             active -= 1
             _records.append(self)
-        return False
 
     def handle(self):
         """(id, trace id): what a reverse rule keeps to name its parent."""
@@ -251,6 +264,23 @@ def credit(key, n):
     if stack:
         counts = stack[-1].counts
         counts[key] = counts.get(key, 0) + n
+
+
+def on_reverse(t, name, parent):
+    """The reverse of what produced `t` as a span `name` under `parent`
+    (the `current()` of its forward): it opens when a backward pass has
+    `t`'s cotangent ready and closes when that pass ends, on whichever
+    threads autograd runs the two, so the reverse rules that run in between
+    lie inside it.  It is credited with the cotangent's entries (`elems`).
+    It registers a tensor hook: call it only while spans record, on a
+    tensor that requires grad."""
+
+    def hook(t_bar):
+        s = _Span(name, parent).open(parent)
+        s.counts["elems"] = t_bar.numel()
+        torch.autograd.Variable._execution_engine.queue_callback(s.close)
+
+    t.register_hook(hook)
 
 
 @contextmanager

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from stheno_tpu_torch import config, entry
+from stheno_tpu_torch import params as P
 from stheno_tpu_torch.cuda import _build
 from stheno_tpu_torch.cuda import kernelmatrix as tkm
 from stheno_tpu_torch.ops import blocked_cholesky as tbc
@@ -63,12 +64,13 @@ def test_span_tree_has_ids_parents_and_one_trace_a_call():
     for root in roots:
         call = [r for r in recs if r["trace"] == root["id"]]
         got = _by_name(call)
-        assert sorted(got) == ["chol.factor", "chol.reverse", "cov", "cov.reverse", "logpdf",
-                               "solve", "solve.reverse"]
+        assert sorted(got) == ["chol.factor", "chol.reverse", "cov", "cov.reverse", "graph.reverse",
+                               "logpdf", "solve", "solve.reverse"]
         (cov,), (factor,), (solve,) = got["cov"], got["chol.factor"], got["solve"]
         assert cov["parent"] == factor["parent"] == solve["parent"] == root["id"]
         # a reverse rule's span is a child of the span its forward ran in
         assert got["chol.reverse"][0]["parent"] == factor["id"]
+        assert got["graph.reverse"][0]["parent"] == cov["id"]
         assert got["solve.reverse"][0]["parent"] == solve["id"]
         assert [r["parent"] for r in got["cov.reverse"]] == [cov["id"]] * 2  # f1's and f2's kernel
         for r in call:
@@ -380,8 +382,6 @@ def test_spans_of_requests_and_the_pseudo_point_bound():
     T.clear()
     data = entry.pseudo_points_data(600, 24, torch.float64, "cpu", half_width=8.0)
     spec = entry.pseudo_points_spec(data[2])
-    from stheno_tpu_torch import params as P
-
     th, unflatten = P.init(spec)
     th = th.detach().requires_grad_(True)
     with T.recording():
@@ -394,6 +394,73 @@ def test_spans_of_requests_and_the_pseudo_point_bound():
     # the substitution and its products reverse in one rule, under the bound
     (reverse,) = got["solve.reverse"]
     assert reverse["parent"] == root["id"] and reverse["counts"].get("vfe.fused") == 1
+
+
+def _mauna_loa_step():
+    """One value-and-gradient step of the two-output Mauna Loa programme at
+    96 + 32 points (float64, the blocked route)."""
+    data = entry.mauna_loa_data(96, 32, torch.float64, "cpu")
+    theta0, _ = P.init(entry.mauna_loa_spec(torch.float64, "cpu"))
+    with config.chol_backend("blocked"):
+        return entry.mauna_loa_step(theta0, data)
+
+
+def _inside(inner, outer):
+    return outer["host_ns"][0] <= inner["host_ns"][0] <= inner["host_ns"][1] <= outer["host_ns"][1]
+
+
+def test_stacked_blocks_are_a_cross_span_inside_cov():
+    with T.recording():
+        _mauna_loa_step()
+    got = _by_name(T.spans())
+    (root,), (cov,), (cross,) = got["logpdf"], got["cov"], got["cov.cross"]
+    assert cov["parent"] == root["id"] and cross["parent"] == cov["id"] and _inside(cross, cov)
+    assert cross["counts"] == {"blocks": 4, "elems": 128**2}  # co2², co2 × T, T × co2, T²
+    assert cov["counts"] == {"elems": 128**2}  # kernel 1's launches credit the inner span
+
+
+def test_the_graphs_reverse_is_one_span_holding_kernel1s_reverse_rules():
+    """`graph.reverse` opens when the covariance's cotangent is ready (after
+    the factor's reverse rule) and closes when the backward pass ends,
+    under the forward's `cov` span; kernel 1's reverse rules run inside."""
+    with T.recording():
+        _mauna_loa_step()
+    recs = T.spans()
+    got = _by_name(recs)
+    (root,), (cov,), (rev,) = got["logpdf"], got["cov"], got["graph.reverse"]
+    assert rev["parent"] == cov["id"] and {r["trace"] for r in recs} == {root["id"]}
+    assert rev["counts"] == {"elems": 128**2}
+    assert len(got["cov.reverse"]) >= 2 and all(_inside(r, rev) for r in got["cov.reverse"])
+    assert all(r["host_ns"][1] <= rev["host_ns"][0] for r in got["chol.reverse"] + got["solve.reverse"])
+    assert T.active == 0
+
+
+def test_the_graphs_reverse_on_another_thread():
+    data = entry.mauna_loa_data(96, 32, torch.float64, "cpu")
+    theta0, unflatten = P.init(entry.mauna_loa_spec(torch.float64, "cpu"))
+    th = theta0.requires_grad_(True)
+    with config.chol_backend("blocked"), T.recording():
+        val = entry.mauna_loa_nlml(unflatten(th), data)
+    worker = threading.Thread(target=lambda: torch.autograd.grad(val, th))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    got = _by_name(T.spans())
+    (cov,), (rev,) = got["cov"], got["graph.reverse"]
+    assert rev["parent"] == cov["id"] and rev["thread"] != cov["thread"]
+    assert T.active == 0
+
+
+def test_tracer_off_registers_no_hook_and_the_step_is_the_same(monkeypatch):
+    hooks = []
+    register = torch.Tensor.register_hook
+    monkeypatch.setattr(torch.Tensor, "register_hook", lambda t, fn: hooks.append(t.shape) or register(t, fn))
+    value_off, grad_off = _mauna_loa_step()
+    assert hooks == [] and T.spans() == []
+    with T.recording():
+        value_on, grad_on = _mauna_loa_step()
+    assert hooks == [(128, 128)]  # the covariance the graph returned
+    assert float(value_on) == float(value_off) and torch.equal(grad_on, grad_off)
 
 
 def _base_inverses_by_span(monkeypatch):
